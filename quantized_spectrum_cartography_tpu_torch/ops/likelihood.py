@@ -1,0 +1,112 @@
+"""Probit / logistic likelihood of 1-bit observations.
+
+Port of the 1-bit part of ``quantized_spectrum_cartography_tpu/ops/likelihood.py``.
+Every function reduces over the trailing map axes ``[K, I, J]`` only, so a
+leading batch axis gives one value per map (the JAX package vmaps instead).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from quantized_spectrum_cartography_tpu_torch.ops.quantizer import _SQRT2
+
+# Effective probit scale: the reference evaluates erf(y/(std*1.414213)),
+# i.e. Phi(y/sigma_eff) with sigma_eff = std*1.414213/sqrt(2).
+_SIGMA_EFF = _SQRT2 / 1.4142135623730951
+
+_LOG_SQRT_2PI = 0.9189385332046727
+_MAP_DIMS = (-3, -2, -1)
+
+
+def neg_likelihood_1bit(
+    T_sample: torch.Tensor,
+    T_target: torch.Tensor,
+    mean,
+    std=None,
+    probit: bool = True,
+    mask: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """1-bit MLE loss: mean binary cross-entropy of link(T_sample - mean)
+    against {0,1} targets, per map ([..., K, I, J] -> [...]).
+
+    Uses the sign fold t*logF(u) + (1-t)*logF(-u) = logF((2t-1)*u), valid
+    for the symmetric probit and logistic links."""
+    u = T_sample - mean
+    su = (2.0 * T_target - 1.0) * u
+    if probit:
+        if std is None:
+            raise ValueError("probit link needs std")
+        bce = -torch.special.log_ndtr(su / (std * _SIGMA_EFF))
+    else:
+        bce = -F.logsigmoid(su)
+    if mask is None:
+        return bce.mean(dim=_MAP_DIMS)
+    return ((mask * bce).sum(dim=_MAP_DIMS)
+            / mask.sum(dim=_MAP_DIMS).clamp_min(1.0))
+
+
+def pack_sign_mask(
+    T_target: torch.Tensor, mask: Optional[torch.Tensor] = None
+) -> torch.Tensor:
+    """int8 tensor s in {-1, 0, +1}: (2t-1) where observed, 0 elsewhere."""
+    s = 2.0 * T_target - 1.0
+    if mask is not None:
+        s = s * mask
+    return s.to(torch.int8)
+
+
+def _onebit_pre(S, C, sm, mean, inv_s):
+    X = torch.einsum("...rij,...rk->...kij", S, C)
+    return sm * (X - mean) * inv_s
+
+
+class _OnebitNLLFactors(torch.autograd.Function):
+    """Analytic-gradient 1-bit NLL over the factors: the backward recomputes
+    the reconstruction and applies d(-logPhi(x))/dx = -phi(x)/Phi(x), so
+    masked entries (sign 0) give an exact zero, never 0*inf."""
+
+    @staticmethod
+    def forward(ctx, S, C, sign_mask, mean, inv_s, inv_count):
+        sm = sign_mask.to(S.dtype)
+        x = _onebit_pre(S, C, sm, mean, inv_s)
+        nll = -(sm.abs() * torch.special.log_ndtr(x)).sum(dim=_MAP_DIMS)
+        ctx.save_for_backward(S, C, sign_mask, inv_count)
+        ctx.mean, ctx.inv_s = mean, inv_s
+        return nll * inv_count
+
+    @staticmethod
+    def backward(ctx, g):
+        S, C, sign_mask, inv_count = ctx.saved_tensors
+        sm = sign_mask.to(S.dtype)
+        x = _onebit_pre(S, C, sm, ctx.mean, ctx.inv_s)
+        ratio = torch.exp(-0.5 * x * x - _LOG_SQRT_2PI
+                          - torch.special.log_ndtr(x))
+        scale = (g * (-inv_count * ctx.inv_s))[..., None, None, None]
+        dT = scale * sm * ratio
+        gS = torch.einsum("...kij,...rk->...rij", dT, C)
+        gC = torch.einsum("...kij,...rij->...rk", dT, S)
+        return gS, gC, None, None, None, None
+
+
+def onebit_nll_factors(
+    S: torch.Tensor,
+    C: torch.Tensor,
+    sign_mask: torch.Tensor,
+    mean: float,
+    inv_s: float,
+    inv_count: torch.Tensor,
+) -> torch.Tensor:
+    """Mean 1-bit probit BCE of the rank-R reconstruction, per map.
+
+    S [..., R, I, J], C [..., R, K], sign_mask int8 [..., K, I, J] from
+    `pack_sign_mask`; inv_s = 1/(std*_SIGMA_EFF); inv_count [...] =
+    1/#observed.  Equals `neg_likelihood_1bit(get_tensor(S, C), T_target,
+    mean, std, probit=True, mask=mask)`."""
+    return _OnebitNLLFactors.apply(S, C, sign_mask, float(mean),
+                                   float(inv_s), inv_count)
+
+

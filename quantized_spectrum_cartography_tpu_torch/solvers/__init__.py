@@ -1,0 +1,11 @@
+"""Batched recovery loops (port of ``quantized_spectrum_cartography_tpu/solvers``)."""
+
+from quantized_spectrum_cartography_tpu_torch.solvers.base import (  # noqa: F401
+    RecoveryResult,
+)
+from quantized_spectrum_cartography_tpu_torch.solvers.lowrank_mle import (  # noqa: F401
+    SolverState,
+    from_jax_state,
+    recover_lowrank_mle,
+    to_jax_state,
+)

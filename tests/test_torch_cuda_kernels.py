@@ -1,0 +1,97 @@
+"""The port's CUDA kernels on the card (marked `cuda`; they skip without a
+GPU, since a CUDA kernel has no CPU mode).  This file imports neither JAX nor
+the JAX package, so it runs where JAX is not installed:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py -q
+"""
+
+import dataclasses
+
+import pytest
+import torch
+
+from quantized_spectrum_cartography_tpu_torch.config import SolverConfig
+from quantized_spectrum_cartography_tpu_torch.ops.kernels import onebit_nll as k
+from quantized_spectrum_cartography_tpu_torch.solvers.lowrank_mle import (
+    recover_lowrank_mle,
+)
+
+MEAN, STD = 0.0045, 0.008
+
+
+@pytest.fixture
+def gen():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    return torch.Generator(device="cuda").manual_seed(0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rank", [2, 10])
+@pytest.mark.parametrize("masked", [False, True])
+def test_kernels_match_plain(gen, rank, masked):
+    """Bench shapes (B=256, K=64, 51x51): value rtol 1e-5, gradients within
+    1e-4 of max |grad|."""
+    B, K, I = 256, 64, 51
+    S = 0.05 * torch.rand(B, rank, I * I, generator=gen, device="cuda")
+    C = torch.rand(B, K, rank, generator=gen, device="cuda")
+    y01 = (torch.rand(B, K, I, I, generator=gen, device="cuda") < 0.5).float()
+    mask = ((torch.rand(B, K, I, I, generator=gen, device="cuda") < 0.1)
+            .float() if masked else None)
+    codes = k.pack_codes_1bit(y01, mask)
+    g = 0.5 + torch.rand(B, generator=gen, device="cuda")
+    v = k.onebit_nll_fwd_cuda(S, C, codes, MEAN, STD)
+    dS, dC = k.onebit_nll_bwd_cuda(S, C, codes, g, MEAN, STD)
+    torch.cuda.synchronize()
+    v0 = k.onebit_nll_plain(S, C, codes, MEAN, STD)
+    dS0, dC0 = k.onebit_nll_grad_plain(S, C, codes, g, MEAN, STD)
+    assert ((v - v0).abs() / v0.abs()).max() <= 1e-5
+    assert (dS - dS0).abs().max() <= 1e-4 * dS0.abs().max()
+    assert (dC - dC0).abs().max() <= 1e-4 * dC0.abs().max()
+
+
+@pytest.mark.cuda
+def test_wrapper_rejects_bad_inputs(gen):
+    S = torch.rand(2, 3, 100, generator=gen, device="cuda")
+    C = torch.rand(2, 8, 3, generator=gen, device="cuda")
+    codes = torch.zeros(2, 8, 100, dtype=torch.int8, device="cuda")
+    with pytest.raises(ValueError, match="contiguous"):
+        k.onebit_nll_fwd_cuda(S, C.transpose(1, 2).contiguous().transpose(1, 2),
+                              codes, MEAN, STD)
+    with pytest.raises(TypeError, match="int8"):
+        k.onebit_nll_fwd_cuda(S, C, codes.float(), MEAN, STD)
+    with pytest.raises(ValueError, match="rank"):
+        k.onebit_nll_fwd_cuda(torch.rand(2, 17, 100, device="cuda"),
+                              torch.rand(2, 8, 17, device="cuda"), codes,
+                              MEAN, STD)
+
+
+@pytest.mark.cuda
+def test_solver_on_card_matches_plain_and_resumes_bitwise(gen):
+    """A small solve through the kernels agrees with nll_mode="plain"
+    (rtol 1e-4 on the costs), and, with no float atomics anywhere in the
+    kernels, N + M resumed iterations equal N+M straight ones bitwise."""
+    B, R, K, I = 4, 2, 16, 21
+    T = torch.einsum("brij,brk->bkij",
+                     0.3 * torch.rand(B, R, I, I, generator=gen, device="cuda"),
+                     0.1 * torch.rand(B, R, K, generator=gen, device="cuda"))
+    T_obs = (torch.rand(T.shape, generator=gen, device="cuda")
+             < 0.5 * (1 + torch.erf((T - MEAN) / (STD * 1.414213)))).float()
+    S0 = torch.zeros(B, R, I, I, device="cuda")
+    C0 = torch.full((B, R, K), 0.01, device="cuda")
+    cfg = SolverConfig(max_iters=12, s_inner_iters=3, c_inner_iters=3,
+                       lr_s=0.001, lr_c=0.001, projection_interval=5)
+    run = lambda c, **kw: recover_lowrank_mle(T_obs, S0, C0, c, MEAN, STD,  # noqa: E731
+                                              T_true=T, **kw)
+    k.reset_launches()
+    straight = run(cfg)
+    assert k.onebit_nll_fwd_cuda.launches == 12 * 6
+    assert k.onebit_nll_bwd_cuda.launches == 12 * 6
+    plain = run(cfg, nll_mode="plain")
+    torch.testing.assert_close(straight.costs, plain.costs, rtol=1e-4,
+                               atol=0.0)
+    half = dataclasses.replace(cfg, max_iters=6)
+    first = run(half)
+    second = run(half, state=first.aux["state"])
+    assert torch.equal(second.S, straight.S)
+    assert torch.equal(second.C, straight.C)

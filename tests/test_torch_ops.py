@@ -1,0 +1,196 @@
+"""Port ops (quantizer, likelihood, lowrank, metrics) against the JAX
+package's functions on the same numpy arrays."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from quantized_spectrum_cartography_tpu.ops import likelihood as jlik
+from quantized_spectrum_cartography_tpu.ops import lowrank as jlr
+from quantized_spectrum_cartography_tpu.ops import metrics as jmet
+from quantized_spectrum_cartography_tpu.ops import quantizer as jq
+from quantized_spectrum_cartography_tpu_torch.ops import likelihood as tlik
+from quantized_spectrum_cartography_tpu_torch.ops import lowrank as tlr
+from quantized_spectrum_cartography_tpu_torch.ops import metrics as tmet
+from quantized_spectrum_cartography_tpu_torch.ops import quantizer as tq
+
+torch.set_num_threads(1)
+
+B, R, K, I = 3, 2, 8, 9
+MEAN, STD = 0.0045, 0.008
+
+
+def t(x):
+    return torch.tensor(np.array(x))
+
+
+@pytest.fixture
+def problem(rng):
+    S = rng.uniform(0.0, 0.05, (B, R, I, I)).astype(np.float32)
+    C = rng.uniform(0.0, 0.5, (B, R, K)).astype(np.float32)
+    y01 = rng.integers(0, 2, (B, K, I, I)).astype(np.float32)
+    mask = (rng.uniform(size=(B, K, I, I)) < 0.3).astype(np.float32)
+    return S, C, y01, mask
+
+
+def test_constants_exact():
+    assert tq._SQRT2 == jq._SQRT2 == 1.414213
+    assert tlik._SIGMA_EFF == jlik._SIGMA_EFF
+
+
+def test_F_probit_matches(rng):
+    y = rng.normal(0.0, 0.02, (K, I, I)).astype(np.float32)
+    np.testing.assert_allclose(tq.F_probit(t(y), STD).numpy(),
+                               np.asarray(jq.F_probit(jnp.asarray(y), STD)),
+                               rtol=1e-6, atol=1e-7)
+
+
+def test_dither_probit_statistics(rng):
+    """Bernoulli(Phi(y/std)): {0,1}, and the share of ones within 4 standard
+    errors of mean Phi (torch's random bits differ from jax.random's)."""
+    y = t(rng.normal(0.0, 0.01, (64, 32, 32)).astype(np.float32))
+    gen = torch.Generator().manual_seed(0)
+    z = tq.dither_probit(y, STD, gen)
+    assert z.dtype == y.dtype and set(z.unique().tolist()) <= {0.0, 1.0}
+    p = tq.F_probit(y, STD)
+    se = torch.sqrt((p * (1 - p)).sum()) / p.numel()
+    assert abs(z.mean() - p.mean()) < 4 * se
+
+
+@pytest.mark.parametrize("probit", [True, False])
+@pytest.mark.parametrize("masked", [False, True])
+def test_neg_likelihood_1bit_matches(problem, probit, masked):
+    S, C, y01, mask = problem
+    T = np.einsum("brij,brk->bkij", S, C)
+    m = mask if masked else None
+    got = tlik.neg_likelihood_1bit(t(T), t(y01), MEAN, STD, probit,
+                                   None if m is None else t(m))
+    ref = jax.vmap(lambda a, b, mm: jlik.neg_likelihood_1bit(
+        a, b, MEAN, STD, probit, mm), in_axes=(0, 0, 0 if masked else None))(
+        jnp.asarray(T), jnp.asarray(y01), None if m is None else jnp.asarray(m))
+    assert got.shape == (B,)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-5)
+
+
+def test_pack_sign_mask_matches(problem):
+    _, _, y01, mask = problem
+    np.testing.assert_array_equal(
+        tlik.pack_sign_mask(t(y01), t(mask)).numpy(),
+        np.asarray(jlik.pack_sign_mask(jnp.asarray(y01), jnp.asarray(mask))))
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_onebit_nll_factors_value_and_grad(problem, masked):
+    """Value rtol 1e-5; gradients rtol 1e-4 / atol 1e-6 (f32 sums in another
+    order).  Gradients stay finite where entries are masked."""
+    S, C, y01, mask = problem
+    m = mask if masked else np.ones_like(mask)
+    inv_s = 1.0 / (STD * jlik._SIGMA_EFF)
+    inv_count = 1.0 / np.maximum(m.sum(axis=(1, 2, 3)), 1.0)
+    sm = np.asarray(jlik.pack_sign_mask(jnp.asarray(y01), jnp.asarray(m)))
+
+    def jax_one(s, c, smb, ic):
+        return jlik.onebit_nll_factors(s, c, smb, jnp.float32(MEAN),
+                                       jnp.float32(inv_s), ic)
+
+    ref_v, (ref_gs, ref_gc) = jax.vmap(jax.value_and_grad(
+        jax_one, argnums=(0, 1)))(jnp.asarray(S), jnp.asarray(C),
+                                  jnp.asarray(sm),
+                                  jnp.asarray(inv_count, jnp.float32))
+    St = t(S).requires_grad_(True)
+    Ct = t(C).requires_grad_(True)
+    v = tlik.onebit_nll_factors(St, Ct, t(sm), MEAN, inv_s,
+                                t(inv_count.astype(np.float32)))
+    gs, gc = torch.autograd.grad(v.sum(), (St, Ct))
+    np.testing.assert_allclose(v.detach().numpy(), np.asarray(ref_v),
+                               rtol=1e-5)
+    np.testing.assert_allclose(gs.numpy(), np.asarray(ref_gs),
+                               rtol=1e-4, atol=1e-6)
+    np.testing.assert_allclose(gc.numpy(), np.asarray(ref_gc),
+                               rtol=1e-4, atol=1e-6)
+    assert torch.isfinite(gs).all() and torch.isfinite(gc).all()
+
+
+def test_get_tensor_and_flat_match(problem):
+    S, C, _, _ = problem
+    ref = jax.vmap(jlr.get_tensor)(jnp.asarray(S), jnp.asarray(C))
+    np.testing.assert_allclose(tlr.get_tensor(t(S), t(C)).numpy(),
+                               np.asarray(ref), rtol=1e-6, atol=1e-9)
+    Sf = S.reshape(B, R, -1)
+    ref_f = jax.vmap(jlr.get_tensor_flat)(jnp.asarray(Sf), jnp.asarray(C))
+    np.testing.assert_allclose(tlr.get_tensor_flat(t(Sf), t(C)).numpy(),
+                               np.asarray(ref_f), rtol=1e-6, atol=1e-9)
+
+
+def test_safe_fro_nonneg_and_nmse(problem):
+    S, C, _, _ = problem
+    np.testing.assert_allclose(float(tlr.safe_fro(t(S))),
+                               float(jlr.safe_fro(jnp.asarray(S))), rtol=1e-6)
+    per_map = tlr.safe_fro(t(S), dim=(-3, -2, -1))
+    ref = jax.vmap(jlr.safe_fro)(jnp.asarray(S))
+    np.testing.assert_allclose(per_map.numpy(), np.asarray(ref), rtol=1e-6)
+    # gradient at the zero start is 0, not NaN
+    z = torch.zeros(2, 3, requires_grad=True)
+    (g,) = torch.autograd.grad(tlr.safe_fro(z), z)
+    assert torch.equal(g, torch.zeros(2, 3))
+    x = S - 0.025
+    np.testing.assert_array_equal(tlr.project_nonneg(t(x)).numpy(),
+                                  np.asarray(jlr.project_nonneg(jnp.asarray(x))))
+    T1, T2 = S[:, 0], S[:, 1]
+    np.testing.assert_allclose(
+        tmet.nmse(t(T1), t(T2), dim=(-2, -1)).numpy(),
+        np.asarray(jax.vmap(jmet.nmse)(jnp.asarray(T1), jnp.asarray(T2))),
+        rtol=1e-6)
+    np.testing.assert_allclose(float(tmet.nmse(t(T1), t(T2))),
+                               float(jmet.nmse(jnp.asarray(T1),
+                                               jnp.asarray(T2))), rtol=1e-6)
+
+
+def _gapped(rng, n, spectrum):
+    """[B, n, n] matrices with the given singular values (a clear gap after
+    the retained rank keeps the projection well conditioned)."""
+    out = []
+    for _ in range(B):
+        u, _ = np.linalg.qr(rng.normal(size=(n, n)))
+        v, _ = np.linalg.qr(rng.normal(size=(n, n)))
+        out.append((u * spectrum) @ v.T)
+    return np.stack(out).astype(np.float32)
+
+
+def test_project_rank_matches(rng):
+    n, rank = 11, 3
+    S = _gapped(rng, n, np.r_[[8.0, 4.0, 2.0], np.geomspace(0.2, 1e-3, n - 3)])
+    got = tlr.project_rank(t(S), rank).numpy()
+    ref = np.asarray(jlr.project_rank(jnp.asarray(S), rank))
+    np.testing.assert_allclose(got, ref, atol=1e-5 * np.abs(ref).max())
+
+
+def test_project_rank_subspace_with_jax_probe(rng):
+    """Same probe as the JAX package (PRNGKey(7)): the projections agree to
+    1e-4 of the largest entry (QR/eigh in another library; eigenvector
+    signs may differ, U Uᵀ S does not)."""
+    n, rank, over = 24, 3, 8
+    S = _gapped(rng, n, np.r_[[8.0, 4.0, 2.0], np.geomspace(0.2, 1e-3, n - 3)])
+    probe = np.asarray(jax.random.normal(jax.random.PRNGKey(7),
+                                         (n, rank + over), jnp.float32))
+    got = tlr.project_rank_subspace(t(S), rank, probe=t(probe)).numpy()
+    ref = np.asarray(jlr.project_rank_subspace(jnp.asarray(S), rank))
+    np.testing.assert_allclose(got, ref, atol=1e-4 * np.abs(ref).max())
+
+
+def test_project_rank_subspace_default_probe(rng):
+    """With the port's own probe, a matrix of rank <= `rank` is kept as it
+    is, and a gapped one lands on the SVD truncation."""
+    n, rank = 24, 3
+    S = _gapped(rng, n, np.r_[[8.0, 4.0, 2.0], np.zeros(n - 3)])
+    got = tlr.project_rank_subspace(t(S), rank)
+    np.testing.assert_allclose(got.numpy(), S, atol=1e-5 * np.abs(S).max())
+    S2 = _gapped(rng, n, np.r_[[8.0, 4.0, 2.0], np.geomspace(0.05, 1e-4,
+                                                              n - 3)])
+    np.testing.assert_allclose(
+        tlr.project_rank_subspace(t(S2), rank).numpy(),
+        tlr.project_rank(t(S2), rank).numpy(), atol=1e-3 * np.abs(S2).max())
+    St = t(S)
+    assert tlr.project_rank_subspace(St, n) is St   # full rank: unchanged

@@ -5,24 +5,53 @@
 
 Phases, each printing one line with its seconds:
   1. device  - the card's name and power limit (nvidia-smi), torch and CUDA
-  2. build   - the CUDA kernels, one nvcc call into build/torch_kernels/
-  3. parity  - each kernel against its plain PyTorch version at the bench
+  2. build   - the CUDA kernels, one nvcc process per source, then one link,
+               into build/torch_kernels/
+  3. parity  - the 1-bit pair against its plain PyTorch version at the bench
                shapes (B=256, K=64, 51x51), R=2 and R=10, with and without a
                10% entry mask; value rtol 1e-5, gradients 1e-4 of max |grad|
-  4. main    - the bench protocol through the port's entry points:
+  4. parity_ordinal - the four ordinal kernels (bounds and coded, forward
+               and backward) against their plain versions, same tolerances,
+               R=2 and R=10, with and without a 10% mask, on three cases:
+               (a) log link, 4-bin log table, sigma 5 (fast numerics), B=1;
+               (b) log link, 8-bin log table, sigma 1 (robust numerics), B=1;
+               (c) linear link, 2 bins split at 0.0045, sigma 0.008, B=256;
+               the coded kernels must give the bounds kernels' results
+               bitwise; and the forward as the z-search scorer, N=201
+               candidates sharing C and the observations
+  5. main    - the bench protocol through the port's entry points:
                generate_map_batch -> dither_probit -> recover_lowrank_mle
                (50 outer x (5 S + 5 C) Adam steps, rank-10 projection every
-               5); both kernels must launch, the results must have their
-               shapes and finite costs, the final NMSE must be finite
+               5); both 1-bit kernels must launch, the results must have
+               their shapes and finite costs, the final NMSE must be finite
                and < 1, and the same solve with nll_mode="plain" must reach
                the same final costs (rtol 1e-3)
-  5. timing  - kernel and plain ms at the bench shapes (CUDA events)
+  6. main_gan - MLE-GAN at full width: a seeded Generator256, a problem it
+               can realize (T = sum_r G(Z_true)_r |c_r|, K=64, 2 emitters,
+               4-bin log quantizer, sigma 5, 10% entry mask), recover_mle_gan
+               with SolverConfig() defaults (500 iterations, z-search of
+               200 + 200 candidates at iteration 1) on "bounds" and on
+               "codes": the counters must equal the launches the loop
+               implies, costs finite and falling, C >= 0, the encodings'
+               final costs within rtol 1e-3; then without the z-search,
+               kernels against nll_mode="plain" (rtol 1e-3)
+  7. main_lowrank_ordinal - recover_lowrank_mle at B=256 on obs_encoding
+               "codes" and "bounds", cut from 50 to 10 outer iterations to
+               keep the plain solves short, each against nll_mode="plain"
+               (final costs, rtol 1e-3)
+  8. timing  - every kernel's and its plain version's ms (CUDA events, in
+               turns plain, kernel, kernel, plain) and its bound: the 1-bit
+               pair at the bench shapes, the ordinal kernels at the MLE-GAN
+               shape (B=1) and at the low-rank shape (B=256)
 
+cuDNN runs without TF32 and with deterministic algorithms, so the solve
+comparisons measure the likelihood kernels, not convolution atomics.
 The line before the last two is the kernels' JSON record; then nvidia-smi's
 "name, power.limit"; the last line is {"ok": true, "device": {...}}.  Any
 failure, or running past DEADLINE_S, exits non-zero without that line.
 """
 
+import dataclasses
 import json
 import re
 import subprocess
@@ -35,16 +64,29 @@ DEADLINE_S = 600
 DEVICE = "cuda"
 BATCH, GRID, BANDS, RANK = 256, 51, 64, 2
 OUTER, INNER = 50, 5
+LOWRANK_ORDINAL_OUTER = 10
 MEAN, STD = 0.0045, 0.008
 PARITY_RANKS = (2, 10)
 MASK_FRACTION = 0.1
+SCORER_N = 201
 VALUE_RTOL, GRAD_RTOL, COST_RTOL = 1e-5, 1e-4, 1e-3
 TIMING_REPS = 20
 # published H100 SXM peaks: HBM bytes/s and f32 FLOP/s outside tensor cores
 PEAK_BYTES_S, PEAK_F32_FLOP_S = 3.35e12, 67e12
 
-SOURCE = "quantized_spectrum_cartography_tpu_torch/csrc/onebit_nll.cu"
+CSRC = "quantized_spectrum_cartography_tpu_torch/csrc/"
 TPU_KERNELS = "quantized_spectrum_cartography_tpu/ops/pallas/fused_likelihood.py"
+# kernel name -> (source, line of the TPU kernel it replaces)
+KERNELS = {
+    "onebit_nll_fwd": ("onebit_nll.cu", 630),
+    "onebit_nll_bwd": ("onebit_nll.cu", 638),
+    "quantized_nll_fwd": ("quantized_nll.cu", 157),
+    "quantized_nll_bwd": ("quantized_nll.cu", 168),
+    "quantized_nll_coded_fwd": ("quantized_nll.cu", 442),
+    "quantized_nll_coded_bwd": ("quantized_nll.cu", 454),
+}
+ORDINAL = ("quantized_nll_fwd", "quantized_nll_bwd",
+           "quantized_nll_coded_fwd", "quantized_nll_coded_bwd")
 
 _T0 = time.monotonic()
 
@@ -87,8 +129,8 @@ def build():
         ".log").exists() else ""
     regs = [int(x) for x in re.findall(r"Used (\d+) registers", log)]
     spills = sum(int(x) for x in re.findall(r"(\d+) bytes spill stores", log))
-    print(f"built {path.name}: max {max(regs, default=0)} registers, "
-          f"{spills} bytes of spill stores", flush=True)
+    print(f"built {path.name}: {len(regs)} kernels, max {max(regs, default=0)}"
+          f" registers, {spills} bytes of spill stores", flush=True)
     _build.load_library()
 
 
@@ -109,6 +151,13 @@ def parity_inputs(gen, R, masked):
     return S, C, pack_codes_1bit(y01.float(), mask), g
 
 
+def rel_errs(v, v0, grads, grads0):
+    """(value rel err, [grad err / max |grad|]) of kernel against plain."""
+    rel_v = ((v - v0).abs() / v0.abs()).max().item()
+    return rel_v, [((a - b).abs().max() / b.abs().max()).item()
+                   for a, b in zip(grads, grads0)]
+
+
 def parity():
     """Max abs errors (fwd, bwd) over all cases; fails past tolerance."""
     from quantized_spectrum_cartography_tpu_torch.ops.kernels import onebit_nll as k
@@ -123,9 +172,7 @@ def parity():
             torch.cuda.synchronize()
             v0 = k.onebit_nll_plain(S, C, codes, MEAN, STD)
             dS0, dC0 = k.onebit_nll_grad_plain(S, C, codes, g, MEAN, STD)
-            rel_v = ((v - v0).abs() / v0.abs()).max().item()
-            rel_s = ((dS - dS0).abs().max() / dS0.abs().max()).item()
-            rel_c = ((dC - dC0).abs().max() / dC0.abs().max()).item()
+            rel_v, (rel_s, rel_c) = rel_errs(v, v0, (dS, dC), (dS0, dC0))
             print(f"parity R={R} mask={masked}: value rel {rel_v:.2e}, "
                   f"dS {rel_s:.2e}, dC {rel_c:.2e} of max", flush=True)
             if not (rel_v <= VALUE_RTOL and rel_s <= GRAD_RTOL
@@ -134,7 +181,115 @@ def parity():
             err_f = max(err_f, (v - v0).abs().max().item())
             err_b = max(err_b, (dS - dS0).abs().max().item(),
                         (dC - dC0).abs().max().item())
-    return err_f, err_b
+    return {"onebit_nll_fwd": err_f, "onebit_nll_bwd": err_b}
+
+
+def ordinal_cases():
+    from quantized_spectrum_cartography_tpu_torch.ops import boundaries as bnd
+    from quantized_spectrum_cartography_tpu_torch.ops.kernels import (
+        quantized_nll as q)
+
+    # name -> (boundary table, sigma, offset, linear link, batch)
+    return {
+        "a_log4_sigma5": (bnd.QUANTIZATION_BOUNDARIES_4_BINS_LOG, 5.0,
+                          bnd.LOG_OFFSET_4, False, 1),
+        "b_log8_sigma1": (bnd.QUANTIZATION_BOUNDARIES_8_BINS_LOG, 1.0,
+                          bnd.LOG_OFFSET_4, False, 1),
+        "c_onebit_linear": (q.onebit_bounds(MEAN), STD, 0.0, True, BATCH),
+    }
+
+
+def ordinal_inputs(gen, case, R, masked):
+    """S, C, (W, U), codes, g: observations quantized from C@S itself."""
+    from quantized_spectrum_cartography_tpu_torch.ops.kernels import (
+        quantized_nll as q)
+    from quantized_spectrum_cartography_tpu_torch.ops.quantizer import (
+        quantize, quantize_log)
+    from quantized_spectrum_cartography_tpu_torch.physics import (
+        sample_entry_mask)
+
+    table, sigma, offset, linear, B = case
+    S = 0.05 * torch.rand(B, R, GRID * GRID, generator=gen, device=DEVICE)
+    C = torch.rand(B, BANDS, R, generator=gen, device=DEVICE)
+    X = torch.matmul(C, S).reshape(B, BANDS, GRID, GRID)
+    Y = (quantize(X, sigma, table, gen) if linear
+         else quantize_log(X, sigma, table, offset, gen))
+    mask = (sample_entry_mask(gen, tuple(Y.shape), MASK_FRACTION,
+                              device=DEVICE) if masked else None)
+    g = 0.5 + torch.rand(B, generator=gen, device=DEVICE)
+    return (S, C, q.pack_bounds(Y, table, mask),
+            q.pack_codes(Y, len(table) - 1, mask), g)
+
+
+def parity_ordinal():
+    """Max abs errors of the four ordinal kernels over all cases."""
+    from quantized_spectrum_cartography_tpu_torch.ops.kernels import (
+        quantized_nll as q)
+
+    gen = torch.Generator(device=DEVICE).manual_seed(1)
+    errs = dict.fromkeys(ORDINAL, 0.0)
+    for name, case in ordinal_cases().items():
+        table, sigma, offset, linear, _ = case
+        st = (sigma, offset, linear, q._fast_ok(sigma))
+        for R in PARITY_RANKS:
+            for masked in (False, True):
+                S, C, (W, U), codes, g = ordinal_inputs(gen, case, R, masked)
+                out = {
+                    "quantized_nll_fwd": (
+                        q.quantized_nll_fwd_cuda(S, C, W, U, *st),),
+                    "quantized_nll_bwd": q.quantized_nll_bwd_cuda(
+                        S, C, W, U, g, *st),
+                    "quantized_nll_coded_fwd": (
+                        q.quantized_nll_coded_fwd_cuda(S, C, codes, table,
+                                                       *st),),
+                    "quantized_nll_coded_bwd": q.quantized_nll_coded_bwd_cuda(
+                        S, C, codes, table, g, *st),
+                }
+                torch.cuda.synchronize()
+                v0 = q.quantized_nll_plain(S, C, W, U, *st)
+                grads0 = q.quantized_nll_grad_plain(S, C, W, U, g, *st)
+                (v,), grads = out["quantized_nll_fwd"], out["quantized_nll_bwd"]
+                rel_v, (rel_s, rel_c) = rel_errs(v, v0, grads, grads0)
+                bitwise = all(torch.equal(a, b) for a, b in zip(
+                    out["quantized_nll_fwd"] + out["quantized_nll_bwd"],
+                    out["quantized_nll_coded_fwd"]
+                    + out["quantized_nll_coded_bwd"]))
+                print(f"parity {name} R={R} mask={masked}: value rel "
+                      f"{rel_v:.2e}, dS {rel_s:.2e}, dC {rel_c:.2e} of max,"
+                      f" coded == bounds bitwise {bitwise}", flush=True)
+                if not (rel_v <= VALUE_RTOL and rel_s <= GRAD_RTOL
+                        and rel_c <= GRAD_RTOL and bitwise):
+                    fail(f"ordinal kernels disagree: {name} R={R} "
+                         f"mask={masked}")
+                for kname in ORDINAL:
+                    ref = (v0,) if kname.endswith("fwd") else grads0
+                    errs[kname] = max(errs[kname], *(
+                        (a - b).abs().max().item()
+                        for a, b in zip(out[kname], ref)))
+
+    # the forward as the z-search scorer: N candidates share C and the
+    # observations (batch stride 0); one launch against N single launches
+    table, sigma, offset, _, _ = ordinal_cases()["a_log4_sigma5"]
+    S, C, bounds, codes, _ = ordinal_inputs(
+        gen, ordinal_cases()["a_log4_sigma5"], RANK, True)
+    cand = 0.05 * torch.rand(SCORER_N, RANK, GRID * GRID, generator=gen,
+                             device=DEVICE)
+    for obs, bb in ((bounds, None), ((codes,), table)):
+        scores = q.score_quantized_nll(cand, C, obs, sigma, offset, bb)
+        torch.cuda.synchronize()
+        one = torch.cat([q.score_quantized_nll(c[None], C, obs, sigma, offset,
+                                               bb) for c in cand])
+        plain = q.score_quantized_nll(cand, C, obs, sigma, offset, bb,
+                                      mode="plain")
+        rel = ((scores - plain).abs() / plain.abs()).max().item()
+        print(f"parity scorer N={SCORER_N} {'codes' if bb else 'bounds'}: "
+              f"rel {rel:.2e} of plain, equal to single launches "
+              f"{torch.equal(scores, one)}", flush=True)
+        if not (rel <= VALUE_RTOL and torch.equal(scores, one)):
+            fail("the scorer disagrees with plain or with single launches")
+        kname = "quantized_nll_coded_fwd" if bb else "quantized_nll_fwd"
+        errs[kname] = max(errs[kname], (scores - plain).abs().max().item())
+    return errs
 
 
 def main_path(card):
@@ -194,7 +349,146 @@ def main_path(card):
     S_flat = res.S.reshape(BATCH, RANK, -1).contiguous()
     C = res.C.transpose(1, 2).contiguous()
     g = torch.full((BATCH,), 1.0 / T_obs[0].numel(), device=DEVICE)
-    return launches, (S_flat, C, codes, g)
+    return launches, (S_flat, C, codes, g), T_obs
+
+
+def timed(fn):
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t
+
+
+def main_gan(card):
+    """MLE-GAN at full width through the ordinal kernels, both encodings."""
+    from quantized_spectrum_cartography_tpu_torch.config import (
+        QuantizerConfig, SolverConfig)
+    from quantized_spectrum_cartography_tpu_torch.models import Generator256
+    from quantized_spectrum_cartography_tpu_torch.ops import boundaries as bnd
+    from quantized_spectrum_cartography_tpu_torch.ops.kernels import (
+        quantized_nll as q)
+    from quantized_spectrum_cartography_tpu_torch.ops.lowrank import get_tensor
+    from quantized_spectrum_cartography_tpu_torch.ops.quantizer import (
+        quantize_log)
+    from quantized_spectrum_cartography_tpu_torch.physics import (
+        sample_entry_mask)
+    from quantized_spectrum_cartography_tpu_torch.solvers import (
+        make_generator_apply, recover_mle_gan)
+
+    gen_apply = make_generator_apply(Generator256(seed=0).to(DEVICE))
+    gen = torch.Generator(device=DEVICE).manual_seed(2)
+    with torch.no_grad():
+        S_true = gen_apply(torch.randn(RANK, 256, generator=gen,
+                                       device=DEVICE))
+    C_true = torch.randn(RANK, BANDS, generator=gen, device=DEVICE).abs()
+    T = get_tensor(S_true, C_true)
+    qcfg = QuantizerConfig(boundaries=bnd.QUANTIZATION_BOUNDARIES_4_BINS_LOG,
+                           noise_std=5.0, log_offset=bnd.LOG_OFFSET_4)
+    Y = quantize_log(T, qcfg.noise_std, qcfg.boundaries, qcfg.log_offset, gen)
+    mask = sample_entry_mask(gen, tuple(Y.shape), MASK_FRACTION,
+                             device=DEVICE)
+    scfg = SolverConfig()
+
+    def solve(cfg, **kw):
+        return timed(lambda: recover_mle_gan(
+            Y, mask, gen_apply, cfg, qcfg, num_emitters=RANK, T_true=T,
+            generator=torch.Generator(device=DEVICE).manual_seed(3), **kw))
+
+    steps = scfg.max_iters * (scfg.c_inner_iters + scfg.s_inner_iters)
+    # the scorer: one forward launch per search phase (global, local)
+    expect = {"fwd": steps + 2, "bwd": steps}
+    launches, results = {}, {}
+    for enc, fwd, bwd in (("bounds", "quantized_nll_fwd", "quantized_nll_bwd"),
+                          ("codes", "quantized_nll_coded_fwd",
+                           "quantized_nll_coded_bwd")):
+        q.reset_launches()
+        res, secs = solve(scfg, obs_encoding=enc)
+        got = {name: getattr(q, name + "_cuda").launches for name in ORDINAL}
+        want = {name: 0 for name in ORDINAL}
+        want.update({fwd: expect["fwd"], bwd: expect["bwd"]})
+        costs = res.costs
+        print(f"main_gan {enc}: launches {got}; costs {costs[0].item():.2f} "
+              f"-> {costs[-1].item():.2f}, final NMSE "
+              f"{res.nmses[-1].item():.4f}; {secs:.3f} s per map on {card}",
+              flush=True)
+        if got != want:
+            fail(f"MLE-GAN {enc}: launches {got}, the loop implies {want}")
+        if not (costs.shape == (scfg.max_iters,)
+                and torch.isfinite(costs).all()
+                and costs[-1] < costs[0] and (res.C >= 0).all()):
+            fail(f"MLE-GAN {enc}: costs not finite and falling, or C < 0")
+        launches.update({fwd: got[fwd], bwd: got[bwd]})
+        results[enc] = res
+    c_b, c_c = results["bounds"].costs[-1], results["codes"].costs[-1]
+    enc_rel = ((c_b - c_c).abs() / c_c.abs()).item()
+    print(f"main_gan: bounds vs codes final cost rel {enc_rel:.2e}",
+          flush=True)
+    if not enc_rel <= COST_RTOL:
+        fail(f"the two encodings disagree on final cost: {enc_rel}")
+
+    flat = dataclasses.replace(scfg, z_search_global=0, z_search_local=0)
+    kern, kern_s = solve(flat)
+    plain, plain_s = solve(flat, nll_mode="plain")
+    rel = ((kern.costs[-1] - plain.costs[-1]).abs()
+           / plain.costs[-1].abs()).item()
+    print(f"main_gan no search: kernels {kern_s:.3f} s, plain {plain_s:.3f} s"
+          f" per map; final cost rel {rel:.2e}", flush=True)
+    if not rel <= COST_RTOL:
+        fail(f"MLE-GAN kernel and plain solves disagree: {rel}")
+
+    res = results["bounds"]
+    S_flat = res.S.reshape(1, RANK, -1).contiguous()
+    C = res.C.T.contiguous()[None]
+    obs = (tuple(x[None].contiguous()
+                 for x in q.pack_bounds(Y, qcfg.boundaries, mask)),
+           q.pack_codes(Y, qcfg.num_bins, mask)[None])
+    inputs = (S_flat, C, obs, qcfg.boundaries, qcfg.noise_std,
+              qcfg.log_offset, False, q._fast_ok(qcfg.noise_std))
+    return launches, inputs
+
+
+def main_lowrank_ordinal(T_obs):
+    """recover_lowrank_mle at B=256 on the ordinal encodings (depth cut)."""
+    from quantized_spectrum_cartography_tpu_torch.config import SolverConfig
+    from quantized_spectrum_cartography_tpu_torch.ops.kernels import (
+        quantized_nll as q)
+    from quantized_spectrum_cartography_tpu_torch.ops.kernels.onebit_nll import (
+        pack_codes_1bit)
+    from quantized_spectrum_cartography_tpu_torch.solvers import (
+        recover_lowrank_mle)
+
+    scfg = SolverConfig(max_iters=LOWRANK_ORDINAL_OUTER, s_inner_iters=INNER,
+                        c_inner_iters=INNER, lr_s=0.001, lr_c=0.001,
+                        projection_interval=5, rank_truncation=10)
+    S0 = torch.zeros(BATCH, RANK, GRID, GRID, device=DEVICE)
+    C0 = torch.full((BATCH, RANK, BANDS), 0.01, device=DEVICE)
+    launches, res = {}, None
+    for enc in ("codes", "bounds"):
+        q.reset_launches()
+        res, secs = timed(lambda: recover_lowrank_mle(
+            T_obs, S0, C0, scfg, MEAN, STD, obs_encoding=enc))
+        got = {name: getattr(q, name + "_cuda").launches for name in ORDINAL}
+        plain, plain_s = timed(lambda: recover_lowrank_mle(
+            T_obs, S0, C0, scfg, MEAN, STD, obs_encoding=enc,
+            nll_mode="plain"))
+        c, c0 = res.costs[:, -1], plain.costs[:, -1]
+        rel = ((c - c0).abs() / c0.abs()).max().item()
+        print(f"main_lowrank_ordinal {enc}: launches {got}, {secs:.3f} s "
+              f"(plain {plain_s:.3f} s) for {BATCH} maps, final costs vs "
+              f"plain rel {rel:.2e}", flush=True)
+        if not (torch.isfinite(res.costs).all() and rel <= COST_RTOL):
+            fail(f"low-rank {enc}: non-finite costs or kernel/plain "
+                 f"disagree: {rel}")
+        launches.update({k: v for k, v in got.items() if v})
+    if sorted(launches) != sorted(ORDINAL):
+        fail(f"the low-rank encodings did not launch every kernel: {launches}")
+    W, U = q.pack_bounds_1bit(T_obs, MEAN)
+    inputs = (res.S.reshape(BATCH, RANK, -1).contiguous(),
+              res.C.transpose(1, 2).contiguous(), ((W, U),
+                                                   pack_codes_1bit(T_obs)),
+              q.onebit_bounds(MEAN), STD, 0.0, True, q._fast_ok(STD))
+    return launches, inputs
 
 
 def event_ms(fn):
@@ -216,29 +510,34 @@ def bound(nbytes, flops):
                                        else "operations")
 
 
-def timing(inputs):
-    """Kernel and plain ms in turns (plain, kernel, kernel, plain), and the
-    bound of each pass from the bytes it must move and its f32 operations
-    (the TPU kernels' own cost estimates: 2KRP + 15KP flops and 2KP
-    transcendentals forward, 6KRP + 20KP and 3KP backward, per map)."""
+def in_turns(pairs):
+    """{name: (kernel ms, plain ms)}, timed plain, kernel, kernel, plain."""
+    ms = {}
+    for name, (kern, plain) in pairs.items():
+        p1, k1, k2, p2 = (event_ms(plain), event_ms(kern), event_ms(kern),
+                          event_ms(plain))
+        ms[name] = ((k1 + k2) / 2, (p1 + p2) / 2)
+    return ms
+
+
+def timing_onebit(inputs):
+    """The 1-bit pair at the bench shapes; bounds from the bytes each pass
+    must move and its f32 operations (the TPU kernels' own cost estimates:
+    2KRP + 15KP flops and 2KP transcendentals forward, 6KRP + 20KP and 3KP
+    backward, per map)."""
     from quantized_spectrum_cartography_tpu_torch.ops.kernels import onebit_nll as k
 
     S, C, codes, g = inputs
     B, R, P = S.shape
     K = C.shape[1]
-    pairs = {
+    ms = in_turns({
         "onebit_nll_fwd": (
             lambda: k.onebit_nll_fwd_cuda(S, C, codes, MEAN, STD),
             lambda: k.onebit_nll_plain(S, C, codes, MEAN, STD)),
         "onebit_nll_bwd": (
             lambda: k.onebit_nll_bwd_cuda(S, C, codes, g, MEAN, STD),
             lambda: k.onebit_nll_grad_plain(S, C, codes, g, MEAN, STD)),
-    }
-    ms = {}
-    for name, (kern, plain) in pairs.items():
-        p1, k1, k2, p2 = (event_ms(plain), event_ms(kern), event_ms(kern),
-                          event_ms(plain))
-        ms[name] = ((k1 + k2) / 2, (p1 + p2) / 2)
+    })
     in_bytes = codes.numel() + 4 * (S.numel() + C.numel())
     bounds = {
         "onebit_nll_fwd": bound(in_bytes + 4 * B,
@@ -246,11 +545,74 @@ def timing(inputs):
         "onebit_nll_bwd": bound(in_bytes + 4 * B + 4 * (S.numel() + C.numel()),
                                 B * (6 * K * R * P + 23 * K * P)),
     }
-    for name in pairs:
+    return ms, bounds
+
+
+def timing_ordinal(inputs, label):
+    """The four ordinal kernels on one solve's final factors.  Bounds: each
+    input read once and each output written once ((W, U) 8 B per entry,
+    codes 1 B), and the f32 operations of the entries this run observes
+    (the kernels skip masked ones), per the TPU kernels' cost estimates:
+    2R + 25 flops and 4 transcendentals forward, 6R + 30 and 5 backward."""
+    from quantized_spectrum_cartography_tpu_torch.ops.kernels import (
+        quantized_nll as q)
+
+    S, C, (bounds_obs, codes), table, sigma, offset, linear, fast = inputs
+    W, U = bounds_obs
+    st = (sigma, offset, linear, fast)
+    B, R, P = S.shape
+    K = C.shape[1]
+    g = torch.full((B,), 1.0, device=DEVICE)
+    ms = in_turns({
+        "quantized_nll_fwd": (
+            lambda: q.quantized_nll_fwd_cuda(S, C, W, U, *st),
+            lambda: q.quantized_nll_plain(S, C, W, U, *st)),
+        "quantized_nll_bwd": (
+            lambda: q.quantized_nll_bwd_cuda(S, C, W, U, g, *st),
+            lambda: q.quantized_nll_grad_plain(S, C, W, U, g, *st)),
+        "quantized_nll_coded_fwd": (
+            lambda: q.quantized_nll_coded_fwd_cuda(S, C, codes, table, *st),
+            lambda: q.quantized_nll_coded_plain(S, C, codes, table, *st)),
+        "quantized_nll_coded_bwd": (
+            lambda: q.quantized_nll_coded_bwd_cuda(S, C, codes, table, g,
+                                                   *st),
+            lambda: q.quantized_nll_coded_grad_plain(S, C, codes, table, g,
+                                                     *st)),
+    })
+    observed = int((codes < len(table) - 1).sum().item())
+    factors = 4 * (S.numel() + C.numel())
+    ops_f = observed * (2 * R + 25 + 4)
+    ops_b = observed * (6 * R + 30 + 5)
+    bounds = {
+        "quantized_nll_fwd": bound(factors + 8 * W.numel() + 4 * B, ops_f),
+        "quantized_nll_bwd": bound(2 * factors + 8 * W.numel() + 4 * B,
+                                   ops_b),
+        "quantized_nll_coded_fwd": bound(factors + codes.numel() + 4 * B,
+                                         ops_f),
+        "quantized_nll_coded_bwd": bound(2 * factors + codes.numel() + 4 * B,
+                                         ops_b),
+    }
+    print(f"timing {label}: B={B}, K={K}, P={P}, R={R}, {observed} of "
+          f"{codes.numel()} entries observed", flush=True)
+    return ms, bounds
+
+
+def timing(inputs_1bit, inputs_gan, inputs_lowrank):
+    ms, bounds = timing_onebit(inputs_1bit)
+    ms_gan, bounds_gan = timing_ordinal(inputs_gan, "MLE-GAN shape")
+    ms_lr, bounds_lr = timing_ordinal(inputs_lowrank, "low-rank shape")
+    ms.update(ms_gan)
+    bounds.update(bounds_gan)
+    for name in KERNELS:
         print(f"timing {name}: kernel {ms[name][0]:.4f} ms, plain "
               f"{ms[name][1]:.4f} ms, bound {bounds[name][0]:.4f} ms "
               f"({bounds[name][1]})", flush=True)
-    return ms, bounds
+    for name in ORDINAL:
+        print(f"timing {name} at B={BATCH}: kernel {ms_lr[name][0]:.4f} ms, "
+              f"plain {ms_lr[name][1]:.4f} ms, bound "
+              f"{bounds_lr[name][0]:.4f} ms ({bounds_lr[name][1]})",
+              flush=True)
+    return ms, bounds, ms_lr, bounds_lr
 
 
 def main():
@@ -258,23 +620,37 @@ def main():
         fail("no CUDA device: this smoke test runs on the GPU only")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
     smi = phase("device", device_info)
     card = torch.cuda.get_device_name(0)
     phase("build", build)
-    err_f, err_b = phase("parity", parity)
-    launches, inputs = phase("main", lambda: main_path(card))
-    ms, bounds = phase("timing", lambda: timing(inputs))
+    errs = phase("parity", parity)
+    errs.update(phase("parity_ordinal", parity_ordinal))
+    launches, inputs_1bit, T_obs = phase("main", lambda: main_path(card))
+    launches_gan, inputs_gan = phase("main_gan", lambda: main_gan(card))
+    launches.update(launches_gan)
+    launches_lr, inputs_lr = phase("main_lowrank_ordinal",
+                                   lambda: main_lowrank_ordinal(T_obs))
+    ms, bounds, ms_lr, bounds_lr = phase(
+        "timing", lambda: timing(inputs_1bit, inputs_gan, inputs_lr))
 
-    errs = {"onebit_nll_fwd": err_f, "onebit_nll_bwd": err_b}
-    lines = {"onebit_nll_fwd": 630, "onebit_nll_bwd": 638}
-    kernels = [{
-        "name": name, "route": "cuda", "source": SOURCE,
-        "replaces": f"{TPU_KERNELS}:{lines[name]}",
-        "launches": launches[name], "max_abs_err": errs[name],
-        "ms": ms[name][0], "plain_ms": ms[name][1],
-        "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
-        "library_ms": None,
-    } for name in ("onebit_nll_fwd", "onebit_nll_bwd")]
+    kernels = []
+    for name, (source, line) in KERNELS.items():
+        rec = {
+            "name": name, "route": "cuda", "source": CSRC + source,
+            "replaces": f"{TPU_KERNELS}:{line}",
+            "launches": launches[name], "max_abs_err": errs[name],
+            "ms": ms[name][0], "plain_ms": ms[name][1],
+            "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
+            "library_ms": None,
+        }
+        if name in ORDINAL:
+            rec["lowrank_b256"] = {
+                "launches": launches_lr[name], "ms": ms_lr[name][0],
+                "plain_ms": ms_lr[name][1], "bound_ms": bounds_lr[name][0],
+                "bound_by": bounds_lr[name][1]}
+        kernels.append(rec)
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -6,15 +6,21 @@ path.  It imports ``torch`` only.  Entry points run on ``cuda`` unless the
 caller passes ``device="cpu"``.
 
 Ported so far: the batched 1-bit low-rank MLE recovery path
-(``solvers.lowrank_mle.recover_lowrank_mle``), the simulator that feeds it,
-and the 1-bit likelihood kernel pair (``ops.kernels.onebit_nll``, CUDA C++
-in ``csrc/onebit_nll.cu``).
+(``solvers.lowrank_mle.recover_lowrank_mle``) and the simulator that feeds
+it; MLE-GAN recovery under the Generator256 prior
+(``solvers.mle_gan.recover_mle_gan``); and every likelihood kernel of the
+JAX package, as CUDA C++: the 1-bit pair (``ops.kernels.onebit_nll``,
+``csrc/onebit_nll.cu``) and the ordinal bounds/coded pairs
+(``ops.kernels.quantized_nll``, ``csrc/quantized_nll.cu``).
 
 Layout
 ------
-- ``ops``       quantizer, likelihood, rank-R reconstruction, metrics, kernels
+- ``ops``       quantizer, boundary tables, likelihood, rank-R
+                reconstruction, metrics, kernels
 - ``physics``   synthetic radio-map simulator
-- ``solvers``   batched recovery loops
+- ``models``    the DCGAN generators (deep priors)
+- ``training``  generator weights from the JAX package's parameter trees
+- ``solvers``   recovery loops and the randomized latent search
 - ``csrc``      hand-written CUDA sources, built at first use into ``build/``
 """
 

@@ -8,6 +8,7 @@ so that the port runs without JAX.
 from __future__ import annotations
 
 import dataclasses
+from typing import Tuple
 
 
 @dataclasses.dataclass(frozen=True)
@@ -28,6 +29,26 @@ class PhysicsConfig:
     alpha_spread: float = 0.5
     mean_slf: float = 0.0045       # 1-bit threshold (generate_test_data.m:27)
     std_slf: float = 0.0191
+
+
+@dataclasses.dataclass(frozen=True)
+class QuantizerConfig:
+    """Quantization / observation model.
+
+    domain='log' applies link(x) = log(x + offset) before dithering+binning
+    (reference `qmc/quantization_model_log.py:9-21`); domain='linear' is the
+    identity link (`qmc/quantization_model.py:8-20`).
+    """
+
+    boundaries: Tuple[float, ...] = ()      # bin boundaries, len = num_bins + 1
+    noise_std: float = 5.0                  # dither / probit sigma
+    domain: str = "log"                     # 'log' | 'linear'
+    log_offset: float = 1e-10
+    link_model: str = "probit"              # 'probit' | 'sigmoid'
+
+    @property
+    def num_bins(self) -> int:
+        return len(self.boundaries) - 1
 
 
 @dataclasses.dataclass(frozen=True)

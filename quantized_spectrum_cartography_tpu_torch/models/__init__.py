@@ -1,0 +1,10 @@
+"""Deep-prior networks (port of ``quantized_spectrum_cartography_tpu/models``)."""
+
+from quantized_spectrum_cartography_tpu_torch.models.generator import (  # noqa: F401
+    DCGANGenerator,
+    Generator64,
+    Generator128,
+    Generator256,
+    Generator512,
+    make_generator,
+)

@@ -1,9 +1,10 @@
-"""Build ``csrc/*.cu`` into one shared library with a single ``nvcc`` call,
-and load it with ``ctypes``.
+"""Build ``csrc/*.cu`` into one shared library, and load it with ``ctypes``.
 
-The library lands in ``build/torch_kernels/`` beside the package, named by a
-hash of the sources and flags, so the first launch builds it (a few seconds)
-and later processes reuse it.  Nothing builds at import time.
+Each source is compiled by its own ``nvcc`` process, all started together,
+and one more ``nvcc`` call links the objects.  The library lands in
+``build/torch_kernels/`` beside the package, named by a hash of the sources
+and flags, so the first launch builds it and later processes reuse it.
+Nothing builds at import time.
 """
 
 from __future__ import annotations
@@ -19,8 +20,9 @@ from pathlib import Path
 _PKG_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = _PKG_DIR / "csrc"
 BUILD_DIR = _PKG_DIR.parent / "build" / "torch_kernels"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+                           "-Xptxas", "-v")
 NVCC_TIMEOUT_S = 300
 
 
@@ -47,6 +49,23 @@ def library_path() -> Path:
     return BUILD_DIR / f"libqsc_torch_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _run(procs, log):
+    """Wait for every process; append its output to `log`; raise on failure."""
+    failed = []
+    for name, proc in procs:
+        try:
+            out, err = proc.communicate(timeout=NVCC_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            for _, p in procs:
+                p.kill()
+            raise RuntimeError(f"nvcc on {name} ran past {NVCC_TIMEOUT_S} s")
+        log.append(f"== {name}\n{out}{err}")
+        if proc.returncode != 0:
+            failed.append(f"{name} ({proc.returncode}):\n{err[-4000:]}")
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
+
+
 def build() -> Path:
     """Compile the sources if no library for them exists yet; return its path.
 
@@ -56,15 +75,24 @@ def build() -> Path:
         return out
     cu, _ = _sources()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, cu)]
-    proc = subprocess.run(cmd, capture_output=True, text=True,
-                          timeout=NVCC_TIMEOUT_S)
-    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stderr[-4000:]}")
-    os.replace(tmp, out)
+    stem = f"{out.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{stem}.{src.stem}.o" for src in cu]
+    log = []
+    try:
+        _run([(src.name, subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+            for src, obj in zip(cu, objs)], log)
+        tmp = BUILD_DIR / f"{stem}.tmp"
+        _run([("link", subprocess.Popen(
+            [_nvcc(), *ARCH_FLAGS, "-shared", "-o", str(tmp),
+             *map(str, objs)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))], log)
+        os.replace(tmp, out)
+    finally:
+        out.with_suffix(".log").write_text("".join(log))
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     return out
 
 
@@ -72,3 +100,9 @@ def build() -> Path:
 def load_library() -> ctypes.CDLL:
     """The loaded kernel library, built first if needed."""
     return ctypes.CDLL(str(build()))
+
+
+def raise_on_error(err: int, what: str) -> None:
+    """Raise if a kernel library call returned a cudaError_t other than 0."""
+    if err != 0:
+        raise RuntimeError(f"{what} launch failed: cudaError {err}")

@@ -4,9 +4,9 @@ hand-written CUDA kernel pair (``csrc/onebit_nll.cu``).
 Port of the 1-bit part of
 ``quantized_spectrum_cartography_tpu/ops/pallas/fused_likelihood.py``: the
 kernels replace ``_fwd_kernel_1bit`` and ``_bwd_kernel_1bit``.  The numerics
-(`_erf`, `_log_ndtr`, `_hazard_ratio`) are that module's own formulas, in
-both the plain version and the kernels, so the port stays at parity with the
-JAX package.
+(`_erf`, `_log_ndtr` from ``numerics.py``, `_hazard_ratio`) are that module's
+own formulas, in both the plain version and the kernels, so the port stays
+at parity with the JAX package.
 
 Layout: S_flat [B, R, P], C [B, K, R], codes int8 [B, K, P] with P = I*J
 (no lane padding).  Both versions return one NLL (a sum) per map.
@@ -23,11 +23,18 @@ from typing import Optional
 
 import torch
 
-from quantized_spectrum_cartography_tpu_torch.ops.likelihood import _SIGMA_EFF
+from quantized_spectrum_cartography_tpu_torch.ops.kernels._build import (
+    raise_on_error,
+)
+from quantized_spectrum_cartography_tpu_torch.ops.kernels.numerics import (
+    _INV_SQRT2,
+    _LOG_SQRT_2PI,
+    _erf,
+    _inv_s,
+    _log_ndtr,
+    _mills_series,
+)
 
-_LOG_SQRT_2PI = 0.9189385332046727
-_INV_SQRT2 = 0.7071067811865476
-_LN2 = 0.6931471805599453
 # as in csrc/onebit_nll.cu: ranks instantiated, warps per block, and the
 # default limit of dynamic shared memory per block
 _MAX_RANK = 16
@@ -47,37 +54,9 @@ def pack_codes_1bit(
 
 
 # --------------------------------------------------------------------------
-# numerics shared with the JAX kernel (fused_likelihood.py:58-106, :608-627)
+# numerics of the JAX kernel (fused_likelihood.py:608-627); _erf and
+# _log_ndtr are shared with the ordinal kernels (numerics.py)
 # --------------------------------------------------------------------------
-
-def _erf(z: torch.Tensor) -> torch.Tensor:
-    """erf via the Abramowitz & Stegun 7.1.26 rational polynomial."""
-    az = z.abs()
-    u = 1.0 / (1.0 + 0.3275911 * az)
-    poly = u * (0.254829592 + u * (-0.284496736 + u * (
-        1.421413741 + u * (-1.453152027 + u * 1.061405429))))
-    val = 1.0 - poly * torch.exp(-az * az)
-    return torch.where(z >= 0.0, val, -val)
-
-
-def _mills_series(safe_t: torch.Tensor) -> torch.Tensor:
-    inv2 = 1.0 / (safe_t * safe_t)
-    return 1.0 - inv2 * (1.0 - 3.0 * inv2 * (1.0 - 5.0 * inv2))
-
-
-def _log_ndtr(t: torch.Tensor) -> torch.Tensor:
-    """log Phi(t): log(1+erf(t/sqrt2)) - log 2 above t=-4, the Mills
-    asymptotic series at or below it.  Both branches see clamped inputs
-    (double where), so the unselected one stays finite."""
-    tc = t.clamp(max=0.0)
-    t2 = tc * tc
-    safe_t = tc.clamp(max=-4.0)
-    asym = (-0.5 * t2 - torch.log(-safe_t) - _LOG_SQRT_2PI
-            + torch.log(_mills_series(safe_t)))
-    t_dir = t.clamp(min=-4.0)
-    direct = torch.log(1.0 + _erf(t_dir * _INV_SQRT2)) - _LN2
-    return torch.where(t <= -4.0, asym, direct)
-
 
 def _hazard_ratio(t: torch.Tensor) -> torch.Tensor:
     """phi(t)/Phi(t): direct above t=-4 (denominator floored at 1e-30), the
@@ -89,10 +68,6 @@ def _hazard_ratio(t: torch.Tensor) -> torch.Tensor:
     safe_t = t.clamp(max=-4.0)
     tail = -safe_t / _mills_series(safe_t)
     return torch.where(t < -4.0, tail, direct)
-
-
-def _inv_s(sigma: float) -> float:
-    return 1.0 / (sigma * _SIGMA_EFF)
 
 
 def _signs_and_t(S_flat, C, codes, mean, sigma):
@@ -179,11 +154,6 @@ def _check(S_flat, C, codes, g=None):
     return B, R, K, P
 
 
-def _raise_on(err: int, what: str):
-    if err != 0:
-        raise RuntimeError(f"{what} launch failed: cudaError {err}")
-
-
 def _nblk(P: int) -> int:
     t = _lib().qsc_onebit_threads()
     return (P + t - 1) // t
@@ -201,7 +171,7 @@ def onebit_nll_fwd_cuda(S_flat, C, codes, mean: float, sigma: float):
             S_flat.data_ptr(), C.data_ptr(), codes.data_ptr(),
             partial.data_ptr(), out.data_ptr(), B, R, K, P,
             float(mean), _inv_s(sigma), stream)
-    _raise_on(err, "onebit_nll_fwd")
+    raise_on_error(err, "onebit_nll_fwd")
     onebit_nll_fwd_cuda.launches += 1
     return out
 
@@ -220,7 +190,7 @@ def onebit_nll_bwd_cuda(S_flat, C, codes, g, mean: float, sigma: float):
             S_flat.data_ptr(), C.data_ptr(), codes.data_ptr(), g.data_ptr(),
             dS.data_ptr(), partial.data_ptr(), dC.data_ptr(), B, R, K, P,
             float(mean), _inv_s(sigma), stream)
-    _raise_on(err, "onebit_nll_bwd")
+    raise_on_error(err, "onebit_nll_bwd")
     onebit_nll_bwd_cuda.launches += 1
     return dS, dC
 

@@ -1,8 +1,10 @@
-"""Probit / logistic likelihood of 1-bit observations.
+"""Probit / logistic likelihood of quantized observations.
 
-Port of the 1-bit part of ``quantized_spectrum_cartography_tpu/ops/likelihood.py``.
-Every function reduces over the trailing map axes ``[K, I, J]`` only, so a
-leading batch axis gives one value per map (the JAX package vmaps instead).
+Port of ``quantized_spectrum_cartography_tpu/ops/likelihood.py``: the ordinal
+likelihood from bin bounds (the solvers' unfused branch) and the 1-bit
+losses.  Every function reduces over the trailing map axes ``[K, I, J]``
+only, so a leading batch axis gives one value per map (the JAX package vmaps
+instead).
 """
 
 from __future__ import annotations
@@ -20,6 +22,50 @@ _SIGMA_EFF = _SQRT2 / 1.4142135623730951
 
 _LOG_SQRT_2PI = 0.9189385332046727
 _MAP_DIMS = (-3, -2, -1)
+
+
+def gather_bin_bounds(
+    Y: torch.Tensor,
+    bin_boundaries,
+    clamp_outer: Optional[float] = None,
+):
+    """Lower/upper boundary tensors (W, U) = (bb[Y], bb[Y+1]) for bin indices
+    Y; clamp_outer sets the outer boundaries to -+clamp_outer."""
+    bb = torch.as_tensor(bin_boundaries, dtype=torch.float32, device=Y.device)
+    if clamp_outer is not None:
+        bb = bb.clone()
+        bb[0], bb[-1] = -clamp_outer, clamp_outer
+    Yl = Y.long()
+    return bb[Yl], bb[Yl + 1]
+
+
+def log_prob_probit_bounds(
+    W: torch.Tensor, U: torch.Tensor, X_hat: torch.Tensor, noise_std
+) -> torch.Tensor:
+    """Stable log(Phi((U-X)/s) - Phi((W-X)/s)) from precomputed bounds: the
+    anchor term in the larger tail (Phi(b)-Phi(a) = Phi(-a)-Phi(-b)), then
+    log P = log_ndtr(hi) + log(-expm1(log_ndtr(lo) - log_ndtr(hi))),
+    floored at the dtype's smallest normal."""
+    s = noise_std * _SIGMA_EFF
+    a = (W - X_hat) / s
+    b = (U - X_hat) / s
+    flip = (a + b) > 0.0
+    lo = torch.where(flip, -b, a)
+    hi = torch.where(flip, -a, b)
+    l_lo = torch.special.log_ndtr(lo)
+    l_hi = torch.special.log_ndtr(hi)
+    diff = (l_lo - l_hi).clamp(max=0.0)
+    tiny = torch.finfo(X_hat.dtype).tiny
+    return l_hi + torch.log((-torch.expm1(diff)).clamp(min=tiny))
+
+
+def masked_nll(
+    logP: torch.Tensor, mask: Optional[torch.Tensor] = None
+) -> torch.Tensor:
+    """Negative log-likelihood -sum(mask * logP) over the map axes."""
+    if mask is None:
+        return -logP.sum(dim=_MAP_DIMS)
+    return -(mask * logP).sum(dim=_MAP_DIMS)
 
 
 def neg_likelihood_1bit(

@@ -46,10 +46,11 @@ def project_rank(S: torch.Tensor, rank: int) -> torch.Tensor:
     return (u * s.unsqueeze(-2)) @ vh
 
 
-def default_probe(n: int, k: int, dtype=torch.float32,
-                  device="cpu") -> torch.Tensor:
-    """The fixed [n, k] Gaussian probe of `project_rank_subspace`: drawn on
-    the CPU from a generator seeded with 7, so it is the same on every device.
+def default_probe(n: int, k: int, dtype=torch.float32, *,
+                  device) -> torch.Tensor:
+    """The fixed [n, k] Gaussian probe of `project_rank_subspace`, on
+    `device`: drawn on the CPU from a generator seeded with 7, so it is the
+    same on every device.
     (The JAX package draws it from PRNGKey(7), which torch cannot reproduce.)"""
     gen = torch.Generator().manual_seed(_PROBE_SEED)
     return torch.randn(n, k, generator=gen, dtype=dtype).to(device)
@@ -75,7 +76,7 @@ def project_rank_subspace(
     if rank >= min(m, n):
         return S
     St = S.transpose(-1, -2)
-    G0 = (default_probe(n, k, S.dtype, S.device) if probe is None
+    G0 = (default_probe(n, k, S.dtype, device=S.device) if probe is None
           else probe.to(device=S.device, dtype=S.dtype))
     Y = S @ G0
     for _ in range(power_iters):

@@ -30,8 +30,8 @@ def column_normalize(C: torch.Tensor, axis: int = -1):
     return torch.where(n > 0, C / safe, C), n.squeeze(axis)
 
 
-def candidate_centers(K: int, num_peaks: int, device="cpu") -> torch.Tensor:
-    """Peak-center candidates 10:2:K-2 (generate_map.m:54-86)."""
+def candidate_centers(K: int, num_peaks: int, *, device) -> torch.Tensor:
+    """Peak-center candidates 10:2:K-2 (generate_map.m:54-86), on `device`."""
     cand = torch.arange(10, K - 1, 2, dtype=torch.float32, device=device)
     if cand.shape[0] < num_peaks - 1:
         raise ValueError(

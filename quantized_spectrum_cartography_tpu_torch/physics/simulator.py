@@ -60,7 +60,7 @@ def generate_map_batch(generator: torch.Generator, cfg: PhysicsConfig,
     def rand(*shape):
         return torch.rand(*shape, generator=generator, device=device)
 
-    cand = psd_mod.candidate_centers(K, Q, device)
+    cand = psd_mod.candidate_centers(K, Q, device=device)
 
     def pick_centers(*shape):         # Q-1 distinct candidates, uniformly
         order = torch.argsort(rand(*shape, cand.shape[0]), dim=-1)

@@ -1,4 +1,4 @@
-"""Batched recovery loops (port of ``quantized_spectrum_cartography_tpu/solvers``)."""
+"""Recovery loops (port of ``quantized_spectrum_cartography_tpu/solvers``)."""
 
 from quantized_spectrum_cartography_tpu_torch.solvers.base import (  # noqa: F401
     RecoveryResult,
@@ -8,4 +8,12 @@ from quantized_spectrum_cartography_tpu_torch.solvers.lowrank_mle import (  # no
     from_jax_state,
     recover_lowrank_mle,
     to_jax_state,
+)
+from quantized_spectrum_cartography_tpu_torch.solvers.mle_gan import (  # noqa: F401
+    GanSolverState,
+    recover_mle_gan,
+)
+from quantized_spectrum_cartography_tpu_torch.solvers.priors import (  # noqa: F401
+    make_generator_apply,
+    randomized_search,
 )

@@ -21,10 +21,11 @@ _B1, _B2, _EPS = 0.9, 0.999, 1e-8
 
 @dataclasses.dataclass
 class RecoveryResult:
-    """Factors + diagnostics from a batched recovery run.
+    """Factors + diagnostics from a recovery run.
 
-    S: [B, R, I, J]; C: [B, R, K]; T_hat: [B, K, I, J]; nmses/costs:
-    per-iteration trajectories [B, max_iters]."""
+    Batched low-rank MLE: S [B, R, I, J]; C [B, R, K]; T_hat [B, K, I, J];
+    nmses/costs [B, max_iters].  MLE-GAN (one map): S [R, I, J]; C [R, K];
+    T_hat [K, I, J]; nmses/costs [max_iters]."""
 
     S: torch.Tensor
     C: torch.Tensor
@@ -82,12 +83,14 @@ def inner_steps(
     loss_fn: Callable[[torch.Tensor], torch.Tensor],
     param: torch.Tensor,
     opt_state: AdamState,
+    batch_dims: int = 1,
 ):
     """`n` Adam steps on one factor (the reference's inner loops); returns
-    (param, opt_state, last_cost), last_cost 0 when n == 0."""
+    (param, opt_state, last_cost), last_cost 0 when n == 0, one per map of
+    the leading `batch_dims` axes of param (0: a single map, a scalar)."""
     cost = None
     for _ in range(n):
         param, opt_state, cost = adam_update(lr, loss_fn, param, opt_state)
     if cost is None:
-        cost = torch.zeros(param.shape[0], device=param.device)
+        cost = torch.zeros(param.shape[:batch_dims], device=param.device)
     return param, opt_state, cost

@@ -21,6 +21,12 @@ from quantized_spectrum_cartography_tpu_torch.ops.kernels.onebit_nll import (
     fused_onebit_nll,
     pack_codes_1bit,
 )
+from quantized_spectrum_cartography_tpu_torch.ops.kernels.quantized_nll import (
+    fused_quantized_nll,
+    fused_quantized_nll_coded,
+    onebit_bounds,
+    pack_bounds_1bit,
+)
 from quantized_spectrum_cartography_tpu_torch.ops.likelihood import (
     _SIGMA_EFF,
     neg_likelihood_1bit,
@@ -130,10 +136,11 @@ def recover_lowrank_mle(
     C-steps per outer iteration, projection every projection_interval;
     joint=True: one step on both factors and a projection every iteration.
 
-    use_fused with probit takes the 1-bit likelihood kernel pair
-    (`fused_onebit_nll`; nll_mode="plain" takes its plain version on the
-    card too); use_fused=False takes `onebit_nll_factors`; probit=False
-    the generic logistic loss.  `state` resumes a previous run from its
+    use_fused with probit takes a likelihood kernel pair (nll_mode="plain"
+    takes its plain version on the card too): obs_encoding="auto" the 1-bit
+    pair `fused_onebit_nll`, "codes"/"bounds" the ordinal pair on int8
+    codes / f32 bounds with the linear link; use_fused=False takes
+    `onebit_nll_factors`; probit=False the generic logistic loss.  `state` resumes a previous run from its
     result's aux["state"]; `probe` is the subspace projection's probe
     (`ops.lowrank.default_probe` if None).  costs/nmses are [B, max_iters];
     each cost is the last C step's, evaluated before its update."""
@@ -141,22 +148,35 @@ def recover_lowrank_mle(
     track_true = T_true is not None
 
     if use_fused and probit:
-        if obs_encoding in ("codes", "bounds"):
-            raise NotImplementedError(
-                f"obs_encoding={obs_encoding!r} needs the coded/bounds "
-                "ordinal kernels (ROADMAP.md, Queue 2: fused_quantized_nll "
-                "and fused_quantized_nll_coded), not ported yet")
-        if obs_encoding != "auto":
-            raise ValueError(f"unknown obs_encoding {obs_encoding!r}")
         count = (mask.sum(dim=_MAP) if mask is not None else
                  torch.full((B,), float(T_obs[0].numel()),
                             device=T_obs.device))
-        codes = pack_codes_1bit(T_obs, mask)
+        if obs_encoding == "auto":
+            # the specialized 2-bin kernel pair on int8 codes
+            codes = pack_codes_1bit(T_obs, mask)
+
+            def nll_fn(S_flat, Ct):
+                return fused_onebit_nll(S_flat, Ct, codes, float(mean), std,
+                                        nll_mode)
+        elif obs_encoding == "codes":
+            # the generic ordinal kernels, linear link, 2 bins split at mean
+            codes = pack_codes_1bit(T_obs, mask)
+            bbt = onebit_bounds(mean)
+
+            def nll_fn(S_flat, Ct):
+                return fused_quantized_nll_coded(S_flat, Ct, codes, bbt, std,
+                                                 0.0, True, None, nll_mode)
+        elif obs_encoding == "bounds":
+            W, U = pack_bounds_1bit(T_obs, mean, mask)
+
+            def nll_fn(S_flat, Ct):
+                return fused_quantized_nll(S_flat, Ct, W, U, std, 0.0, True,
+                                           None, nll_mode)
+        else:
+            raise ValueError(f"unknown obs_encoding {obs_encoding!r}")
 
         def cost_fn(S, C):
-            nll = fused_onebit_nll(
-                S.reshape(B, R, -1), C.transpose(1, 2).contiguous(), codes,
-                float(mean), std, nll_mode)
+            nll = nll_fn(S.reshape(B, R, -1), C.transpose(1, 2).contiguous())
             return (nll / count + l1 * safe_fro(S, _MAP)
                     + l2 * safe_fro(C, _PSD))
     elif probit:

@@ -1,0 +1,7 @@
+"""Weights of the deep priors (port of ``quantized_spectrum_cartography_tpu/training``)."""
+
+from quantized_spectrum_cartography_tpu_torch.training.checkpoints import (  # noqa: F401
+    generator_state_dict_from_flax,
+    load_generator,
+    load_npz_tree,
+)

@@ -11,12 +11,28 @@ import pytest
 import torch
 
 from quantized_spectrum_cartography_tpu_torch.config import SolverConfig
+from quantized_spectrum_cartography_tpu_torch.ops import boundaries as bnd
 from quantized_spectrum_cartography_tpu_torch.ops.kernels import onebit_nll as k
+from quantized_spectrum_cartography_tpu_torch.ops.kernels import (
+    quantized_nll as q,
+)
+from quantized_spectrum_cartography_tpu_torch.ops.quantizer import (
+    quantize,
+    quantize_log,
+)
 from quantized_spectrum_cartography_tpu_torch.solvers.lowrank_mle import (
     recover_lowrank_mle,
 )
 
 MEAN, STD = 0.0045, 0.008
+# the ordinal kernels' cases: (boundary table, sigma, offset, linear link)
+ORDINAL = {
+    "log4_fast": (bnd.QUANTIZATION_BOUNDARIES_4_BINS_LOG, 5.0,
+                  bnd.LOG_OFFSET_4, False),
+    "log8_robust": (bnd.QUANTIZATION_BOUNDARIES_8_BINS_LOG, 1.0,
+                    bnd.LOG_OFFSET_4, False),
+    "onebit_linear": (q.onebit_bounds(MEAN), STD, 0.0, True),
+}
 
 
 @pytest.fixture
@@ -95,3 +111,95 @@ def test_solver_on_card_matches_plain_and_resumes_bitwise(gen):
     second = run(half, state=first.aux["state"])
     assert torch.equal(second.S, straight.S)
     assert torch.equal(second.C, straight.C)
+
+
+def ordinal_inputs(gen, case, B, R, masked, K=64, I=51):
+    """S, C, (W, U), codes, g for one case: Y quantized from C@S itself."""
+    table, sigma, offset, linear = ORDINAL[case]
+    S = 0.05 * torch.rand(B, R, I * I, generator=gen, device="cuda")
+    C = torch.rand(B, K, R, generator=gen, device="cuda")
+    X = torch.matmul(C, S).reshape(B, K, I, I)
+    Y = (quantize(X, sigma, table, gen) if linear
+         else quantize_log(X, sigma, table, offset, gen))
+    mask = ((torch.rand(B, K, I, I, generator=gen, device="cuda") < 0.1)
+            .float() if masked else None)
+    g = 0.5 + torch.rand(B, generator=gen, device="cuda")
+    return (S, C, q.pack_bounds(Y, table, mask),
+            q.pack_codes(Y, len(table) - 1, mask), g)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(ORDINAL))
+@pytest.mark.parametrize("rank", [2, 10])
+@pytest.mark.parametrize("masked", [False, True])
+def test_ordinal_kernels_match_plain(gen, case, rank, masked):
+    """Both encodings, forward and backward, against the plain versions:
+    value rtol 1e-5, gradients within 1e-4 of max |grad|; the coded kernels
+    give bitwise the bounds kernels' results (the same floats go in)."""
+    table, sigma, offset, linear = ORDINAL[case]
+    fast = q._fast_ok(sigma)
+    S, C, (W, U), codes, g = ordinal_inputs(gen, case, 8, rank, masked)
+    st = (sigma, offset, linear, fast)
+    v = q.quantized_nll_fwd_cuda(S, C, W, U, *st)
+    dS, dC = q.quantized_nll_bwd_cuda(S, C, W, U, g, *st)
+    vc = q.quantized_nll_coded_fwd_cuda(S, C, codes, table, *st)
+    dSc, dCc = q.quantized_nll_coded_bwd_cuda(S, C, codes, table, g, *st)
+    torch.cuda.synchronize()
+    v0 = q.quantized_nll_plain(S, C, W, U, *st)
+    dS0, dC0 = q.quantized_nll_grad_plain(S, C, W, U, g, *st)
+    assert torch.isfinite(v).all() and torch.isfinite(dS).all()
+    assert ((v - v0).abs() / v0.abs()).max() <= 1e-5
+    assert (dS - dS0).abs().max() <= 1e-4 * dS0.abs().max()
+    assert (dC - dC0).abs().max() <= 1e-4 * dC0.abs().max()
+    assert torch.equal(v, vc) and torch.equal(dS, dSc) and torch.equal(dC, dCc)
+
+
+@pytest.mark.cuda
+def test_ordinal_scorer_shares_inputs(gen):
+    """The scorer's one launch over N candidates with C and the observations
+    shared (batch stride 0) equals N per-candidate launches, bitwise."""
+    table, sigma, offset, linear = ORDINAL["log4_fast"]
+    S, C, (W, U), codes, _ = ordinal_inputs(gen, "log4_fast", 1, 2, True)
+    cand = 0.05 * torch.rand(33, 2, S.shape[-1], generator=gen, device="cuda")
+    for obs, bb in (((W, U), None), ((codes,), table)):
+        scores = q.score_quantized_nll(cand, C, obs, sigma, offset, bb)
+        one = torch.cat([q.score_quantized_nll(c[None], C, obs, sigma,
+                                               offset, bb) for c in cand])
+        assert torch.equal(scores, one)
+        plain = q.score_quantized_nll(cand, C, obs, sigma, offset, bb,
+                                      mode="plain")
+        assert ((scores - plain).abs() / plain.abs()).max() <= 1e-5
+
+
+@pytest.mark.cuda
+def test_ordinal_masked_entries_are_exact_zero(gen):
+    """An all-masked map: NLL 0 and gradients 0 from every kernel."""
+    table, sigma, offset, linear = ORDINAL["log8_robust"]
+    S, C, _, codes, g = ordinal_inputs(gen, "log8_robust", 2, 3, False)
+    codes = torch.full_like(codes, len(table) - 1)
+    W, U = q._bounds_from_codes(codes, table)
+    st = (sigma, offset, linear, False)
+    for v in (q.quantized_nll_fwd_cuda(S, C, W, U, *st),
+              q.quantized_nll_coded_fwd_cuda(S, C, codes, table, *st)):
+        assert torch.equal(v, torch.zeros_like(v))
+    for dS, dC in (q.quantized_nll_bwd_cuda(S, C, W, U, g, *st),
+                   q.quantized_nll_coded_bwd_cuda(S, C, codes, table, g,
+                                                  *st)):
+        assert not dS.any() and not dC.any()
+
+
+@pytest.mark.cuda
+def test_ordinal_wrapper_rejects_bad_inputs(gen):
+    S, C, (W, U), codes, g = ordinal_inputs(gen, "log4_fast", 2, 2, False,
+                                            K=8, I=10)
+    with pytest.raises(ValueError, match="per-map"):
+        q.quantized_nll_bwd_cuda(S, C[:1], W, U, g, 5.0, 1e-10)
+    with pytest.raises(TypeError, match="int8"):
+        q.quantized_nll_coded_fwd_cuda(S, C, codes.float(), (0.0, 1.0),
+                                       5.0, 1e-10)
+    with pytest.raises(ValueError, match="bins"):
+        q.quantized_nll_coded_fwd_cuda(S, C, codes, tuple(range(34)), 5.0,
+                                       1e-10)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        q.quantized_nll_fwd_cuda(S.cpu(), C.cpu(), W.cpu(), U.cpu(), 5.0,
+                                 1e-10)

@@ -93,6 +93,10 @@ BRANCHES = {
     "generic_logistic": {"probit": False},
     "joint": {"joint": True},
     "svd_nonneg": {"cfg": {"projection_method": "svd", "nonneg_slf": True}},
+    "ordinal_codes": {"obs_encoding": "codes"},
+    "ordinal_codes_masked": {"obs_encoding": "codes", "mask": True},
+    "ordinal_bounds": {"obs_encoding": "bounds"},
+    "ordinal_bounds_masked": {"obs_encoding": "bounds", "mask": True},
 }
 
 
@@ -159,9 +163,17 @@ def test_resume_from_jax_state(problem):
 
 @pytest.mark.parametrize("enc", ["codes", "bounds", "nope"])
 def test_unported_encodings_raise(problem, enc):
-    err = NotImplementedError if enc != "nope" else ValueError
-    with pytest.raises(err, match="Queue 2" if enc != "nope" else "unknown"):
-        _port_run(problem, SolverConfig(**SOLVER), obs_encoding=enc)
+    """Every encoding of the JAX solver is ported now: "codes" and "bounds"
+    run through the ordinal kernels' plain versions here and give the same
+    costs as the 1-bit pair (rtol 1e-4); only an unknown encoding raises."""
+    cfg = SolverConfig(**dict(SOLVER, max_iters=2))
+    if enc == "nope":
+        with pytest.raises(ValueError, match="unknown"):
+            _port_run(problem, cfg, obs_encoding=enc)
+        return
+    got = _port_run(problem, cfg, obs_encoding=enc)
+    ref = _port_run(problem, cfg, obs_encoding="auto")
+    torch.testing.assert_close(got.costs, ref.costs, rtol=1e-4, atol=0.0)
 
 
 def test_cli_recover_and_simulate(tmp_path, capsys):
@@ -178,4 +190,4 @@ def test_cli_recover_and_simulate(tmp_path, capsys):
     cli_main(["simulate", "--batch", "2", "--device", "cpu", "--out", maps])
     assert np.load(maps)["T"].shape == (2, 64, 51, 51)
     with pytest.raises(SystemExit, match="not yet ported"):
-        cli_main(["recover", "--solver", "mle-gan", "--device", "cpu"])
+        cli_main(["recover", "--solver", "dowjons", "--device", "cpu"])

@@ -7,10 +7,12 @@ import numpy as np
 import pytest
 import torch
 
+from quantized_spectrum_cartography_tpu.ops import boundaries as jbnd
 from quantized_spectrum_cartography_tpu.ops import likelihood as jlik
 from quantized_spectrum_cartography_tpu.ops import lowrank as jlr
 from quantized_spectrum_cartography_tpu.ops import metrics as jmet
 from quantized_spectrum_cartography_tpu.ops import quantizer as jq
+from quantized_spectrum_cartography_tpu_torch.ops import boundaries as tbnd
 from quantized_spectrum_cartography_tpu_torch.ops import likelihood as tlik
 from quantized_spectrum_cartography_tpu_torch.ops import lowrank as tlr
 from quantized_spectrum_cartography_tpu_torch.ops import metrics as tmet
@@ -194,3 +196,96 @@ def test_project_rank_subspace_default_probe(rng):
         tlr.project_rank(t(S2), rank).numpy(), atol=1e-3 * np.abs(S2).max())
     St = t(S)
     assert tlr.project_rank_subspace(St, n) is St   # full rank: unchanged
+
+
+# --------------------------------------------------------------------------
+# boundary tables, the ordinal quantizer and the unfused ordinal likelihood
+# --------------------------------------------------------------------------
+
+TABLES = sorted(n for n in dir(jbnd) if n.isupper())
+
+
+def test_boundary_tables_are_the_same_set():
+    assert TABLES == sorted(n for n in dir(tbnd) if n.isupper())
+
+
+@pytest.mark.parametrize("name", TABLES)
+def test_boundary_tables_exact(name):
+    assert getattr(tbnd, name) == getattr(jbnd, name)
+
+
+@pytest.mark.parametrize("n", [1, 4, 8, 256])
+def test_uniform_boundaries(n):
+    assert tbnd.uniform_boundaries(n) == jbnd.uniform_boundaries(n)
+
+
+@pytest.mark.parametrize("log", [False, True])
+def test_quantize_matches(rng, log):
+    """Same noise draws in: the same bin indices out, exactly."""
+    table = (tbnd.QUANTIZATION_BOUNDARIES_4_BINS_LOG if log
+             else tbnd.QUANTIZATION_BOUNDARIES_16_BINS)
+    X = rng.uniform(0.0, 0.02, (K, I, I)).astype(np.float32)
+    key = jax.random.PRNGKey(3)
+    noise = np.asarray(jax.random.normal(key, X.shape, jnp.float32))
+    std = 5.0 if log else 0.001
+    bb = jnp.asarray(np.array(table))
+    if log:
+        ref = jq.quantize_log(key, jnp.asarray(X), std, bb, tbnd.LOG_OFFSET_4)
+        got = tq.quantize_log(t(X), std, table, tbnd.LOG_OFFSET_4,
+                              noise=t(noise))
+    else:
+        ref = jq.quantize(key, jnp.asarray(X), std, bb)
+        got = tq.quantize(t(X), std, table, noise=t(noise))
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+    assert got.unique().numel() > 1            # several bins are hit
+    mid = tq.dequantize_midpoints(got, table)
+    np.testing.assert_array_equal(
+        mid.numpy(), np.asarray(jq.dequantize_midpoints(ref, bb)))
+
+
+def test_quantize_draws_from_generator():
+    X = torch.zeros(4, 5, 5)
+    a = tq.quantize_log(X, 5.0, tbnd.QUANTIZATION_BOUNDARIES_4_BINS, 1e-10,
+                        torch.Generator().manual_seed(0))
+    b = tq.quantize_log(X, 5.0, tbnd.QUANTIZATION_BOUNDARIES_4_BINS, 1e-10,
+                        torch.Generator().manual_seed(0))
+    assert torch.equal(a, b) and a.shape == X.shape
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_log_prob_probit_bounds_and_masked_nll(rng, masked):
+    """The unfused ordinal likelihood (value and autograd gradient) against
+    the JAX package's on one map: rtol 1e-5 on values, 1e-4 on gradients."""
+    table = tbnd.QUANTIZATION_BOUNDARIES_8_BINS_LOG
+    Y = rng.integers(0, 8, (K, I, I)).astype(np.int32)
+    X = rng.uniform(1e-4, 0.05, (K, I, I)).astype(np.float32)
+    m = (rng.uniform(size=Y.shape) < 0.3).astype(np.float32)
+    W, U = tlik.gather_bin_bounds(t(Y), table)
+    jW, jU = jlik.gather_bin_bounds(jnp.asarray(Y), jnp.asarray(np.array(table)))
+    np.testing.assert_array_equal(W.numpy(), np.asarray(jW))
+    np.testing.assert_array_equal(U.numpy(), np.asarray(jU))
+    mm = m if masked else None
+
+    def jf(x):
+        lp = jlik.log_prob_probit_bounds(jW, jU, jnp.log(x + 1e-10), 1.0)
+        return jlik.masked_nll(lp, None if mm is None else jnp.asarray(mm))
+
+    rv, rg = jax.value_and_grad(jf)(jnp.asarray(X))
+    x = t(X).requires_grad_(True)
+    v = tlik.masked_nll(tlik.log_prob_probit_bounds(W, U, torch.log(x + 1e-10),
+                                                    1.0),
+                        None if mm is None else t(mm))
+    (g,) = torch.autograd.grad(v, x)
+    np.testing.assert_allclose(v.item(), float(rv), rtol=1e-5)
+    np.testing.assert_allclose(g.numpy(), np.asarray(rg), rtol=1e-4,
+                               atol=1e-6 * np.abs(np.asarray(rg)).max())
+
+
+def test_gather_bin_bounds_clamp_outer():
+    Y = torch.tensor([[0, 2]])
+    W, U = tlik.gather_bin_bounds(Y, (0.0, 1.0, 2.0, 3.0), clamp_outer=1e5)
+    jW, jU = jlik.gather_bin_bounds(jnp.asarray([[0, 2]]),
+                                    jnp.asarray([0.0, 1.0, 2.0, 3.0]), 1e5)
+    np.testing.assert_array_equal(W.numpy(), np.asarray(jW))
+    np.testing.assert_array_equal(U.numpy(), np.asarray(jU))

@@ -14,6 +14,7 @@ from quantized_spectrum_cartography_tpu.physics import psd as jpsd
 from quantized_spectrum_cartography_tpu.physics import shadowing as jsh
 from quantized_spectrum_cartography_tpu.physics import simulator as jsim
 from quantized_spectrum_cartography_tpu_torch.config import PhysicsConfig
+from quantized_spectrum_cartography_tpu_torch.ops import lowrank as tlr
 from quantized_spectrum_cartography_tpu_torch.physics import psd as tpsd
 from quantized_spectrum_cartography_tpu_torch.physics import shadowing as tsh
 from quantized_spectrum_cartography_tpu_torch.physics import simulator as tsim
@@ -74,7 +75,17 @@ def test_psd_from_jax_draws(basis, separable):
 
 def test_too_few_bands_raises():
     with pytest.raises(ValueError, match="too small"):
-        tpsd.candidate_centers(12, 3)
+        tpsd.candidate_centers(12, 3, device="cpu")
+
+
+def test_helpers_take_the_device_explicitly():
+    """No helper of the port defaults to a device: the caller names it."""
+    with pytest.raises(TypeError):
+        tpsd.candidate_centers(64, 3)
+    with pytest.raises(TypeError):
+        tlr.default_probe(8, 4)
+    assert tpsd.candidate_centers(64, 3, device="cpu").device.type == "cpu"
+    assert tlr.default_probe(8, 4, device="cpu").shape == (8, 4)
 
 
 def test_cholesky_and_shadowing_from_jax_draws():

@@ -9,7 +9,8 @@ Phases, each printing one line with its seconds:
                into build/torch_kernels/
   3. parity  - the 1-bit pair against its plain PyTorch version at the bench
                shapes (B=256, K=64, 51x51), R=2 and R=10, with and without a
-               10% entry mask; value rtol 1e-5, gradients 1e-4 of max |grad|
+               10% entry mask; value rtol 1e-5, gradients 1e-4 of max |grad|;
+               a second launch must give the same bits
   4. parity_ordinal - the four ordinal kernels (bounds and coded, forward
                and backward) against their plain versions, same tolerances,
                R=2 and R=10, with and without a 10% mask, on three cases:
@@ -39,10 +40,13 @@ Phases, each printing one line with its seconds:
                "codes" and "bounds", cut from 50 to 10 outer iterations to
                keep the plain solves short, each against nll_mode="plain"
                (final costs, rtol 1e-3)
-  8. timing  - every kernel's and its plain version's ms (CUDA events, in
-               turns plain, kernel, kernel, plain) and its bound: the 1-bit
-               pair at the bench shapes, the ordinal kernels at the MLE-GAN
-               shape (B=1) and at the low-rank shape (B=256)
+  8. timing  - every kernel's and its plain version's ms (CUDA events over
+               back-to-back calls, in turns plain, kernel, kernel, plain),
+               the kernel's device time (graph_ms: TIMING_REPS calls captured
+               in one CUDA graph, its replays timed with CUDA events, so the
+               host's cost per call drops out) and its bound: the 1-bit pair
+               at the bench shapes, the ordinal kernels at the MLE-GAN shape
+               (B=1) and at the low-rank shape (B=256)
 
 cuDNN runs without TF32 and with deterministic algorithms, so the solve
 comparisons measure the likelihood kernels, not convolution atomics.
@@ -70,7 +74,7 @@ PARITY_RANKS = (2, 10)
 MASK_FRACTION = 0.1
 SCORER_N = 201
 VALUE_RTOL, GRAD_RTOL, COST_RTOL = 1e-5, 1e-4, 1e-3
-TIMING_REPS = 20
+TIMING_REPS, GRAPH_REPLAYS = 20, 10
 # published H100 SXM peaks: HBM bytes/s and f32 FLOP/s outside tensor cores
 PEAK_BYTES_S, PEAK_F32_FLOP_S = 3.35e12, 67e12
 
@@ -167,17 +171,22 @@ def parity():
     for R in PARITY_RANKS:
         for masked in (False, True):
             S, C, codes, g = parity_inputs(gen, R, masked)
-            v = k.onebit_nll_fwd_cuda(S, C, codes, MEAN, STD)
-            dS, dC = k.onebit_nll_bwd_cuda(S, C, codes, g, MEAN, STD)
+            out = [(k.onebit_nll_fwd_cuda(S, C, codes, MEAN, STD),
+                    *k.onebit_nll_bwd_cuda(S, C, codes, g, MEAN, STD))
+                   for _ in range(2)]
             torch.cuda.synchronize()
+            (v, dS, dC), again = out
+            bitwise = all(torch.equal(a, b) for a, b in zip(out[0], again))
             v0 = k.onebit_nll_plain(S, C, codes, MEAN, STD)
             dS0, dC0 = k.onebit_nll_grad_plain(S, C, codes, g, MEAN, STD)
             rel_v, (rel_s, rel_c) = rel_errs(v, v0, (dS, dC), (dS0, dC0))
             print(f"parity R={R} mask={masked}: value rel {rel_v:.2e}, "
-                  f"dS {rel_s:.2e}, dC {rel_c:.2e} of max", flush=True)
+                  f"dS {rel_s:.2e}, dC {rel_c:.2e} of max, second launch "
+                  f"bitwise {bitwise}", flush=True)
             if not (rel_v <= VALUE_RTOL and rel_s <= GRAD_RTOL
-                    and rel_c <= GRAD_RTOL):
-                fail(f"kernel disagrees with plain at R={R} mask={masked}")
+                    and rel_c <= GRAD_RTOL and bitwise):
+                fail(f"kernel disagrees with plain at R={R} mask={masked}, "
+                     f"or with itself")
             err_f = max(err_f, (v - v0).abs().max().item())
             err_b = max(err_b, (dS - dS0).abs().max().item(),
                         (dC - dC0).abs().max().item())
@@ -504,6 +513,30 @@ def event_ms(fn):
     return start.elapsed_time(end) / TIMING_REPS
 
 
+def graph_ms(fn):
+    """Device ms per call: TIMING_REPS calls of `fn` captured in one CUDA
+    graph, its replays timed with CUDA events."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(TIMING_REPS):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(GRAPH_REPLAYS):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (GRAPH_REPLAYS * TIMING_REPS)
+
+
 def bound(nbytes, flops):
     t_bytes, t_ops = nbytes / PEAK_BYTES_S, flops / PEAK_F32_FLOP_S
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
@@ -511,12 +544,13 @@ def bound(nbytes, flops):
 
 
 def in_turns(pairs):
-    """{name: (kernel ms, plain ms)}, timed plain, kernel, kernel, plain."""
+    """{name: (kernel ms, plain ms, kernel graph ms)}: back-to-back calls
+    timed plain, kernel, kernel, plain, then the kernel in a CUDA graph."""
     ms = {}
     for name, (kern, plain) in pairs.items():
         p1, k1, k2, p2 = (event_ms(plain), event_ms(kern), event_ms(kern),
                           event_ms(plain))
-        ms[name] = ((k1 + k2) / 2, (p1 + p2) / 2)
+        ms[name] = ((k1 + k2) / 2, (p1 + p2) / 2, graph_ms(kern))
     return ms
 
 
@@ -604,12 +638,13 @@ def timing(inputs_1bit, inputs_gan, inputs_lowrank):
     ms.update(ms_gan)
     bounds.update(bounds_gan)
     for name in KERNELS:
-        print(f"timing {name}: kernel {ms[name][0]:.4f} ms, plain "
-              f"{ms[name][1]:.4f} ms, bound {bounds[name][0]:.4f} ms "
-              f"({bounds[name][1]})", flush=True)
+        print(f"timing {name}: kernel {ms[name][0]:.4f} ms, graph "
+              f"{ms[name][2]:.4f} ms, plain {ms[name][1]:.4f} ms, bound "
+              f"{bounds[name][0]:.4f} ms ({bounds[name][1]})", flush=True)
     for name in ORDINAL:
         print(f"timing {name} at B={BATCH}: kernel {ms_lr[name][0]:.4f} ms, "
-              f"plain {ms_lr[name][1]:.4f} ms, bound "
+              f"graph {ms_lr[name][2]:.4f} ms, plain {ms_lr[name][1]:.4f} ms, "
+              f"bound "
               f"{bounds_lr[name][0]:.4f} ms ({bounds_lr[name][1]})",
               flush=True)
     return ms, bounds, ms_lr, bounds_lr
@@ -641,14 +676,15 @@ def main():
             "name": name, "route": "cuda", "source": CSRC + source,
             "replaces": f"{TPU_KERNELS}:{line}",
             "launches": launches[name], "max_abs_err": errs[name],
-            "ms": ms[name][0], "plain_ms": ms[name][1],
-            "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
-            "library_ms": None,
+            "ms": ms[name][0], "graph_ms": ms[name][2],
+            "plain_ms": ms[name][1], "bound_ms": bounds[name][0],
+            "bound_by": bounds[name][1], "library_ms": None,
         }
         if name in ORDINAL:
             rec["lowrank_b256"] = {
                 "launches": launches_lr[name], "ms": ms_lr[name][0],
-                "plain_ms": ms_lr[name][1], "bound_ms": bounds_lr[name][0],
+                "graph_ms": ms_lr[name][2], "plain_ms": ms_lr[name][1],
+                "bound_ms": bounds_lr[name][0],
                 "bound_by": bounds_lr[name][1]}
         kernels.append(rec)
     print(json.dumps({"kernels": kernels}))

@@ -35,8 +35,10 @@ from quantized_spectrum_cartography_tpu_torch.ops.kernels.numerics import (
     _mills_series,
 )
 
-# as in csrc/onebit_nll.cu: ranks instantiated, warps per block, and the
-# default limit of dynamic shared memory per block
+# as in csrc/onebit_nll.cu: ranks instantiated; and a cap on K*R, (1 +
+# _WARPS)*K*R floats within the default 48 KB of dynamic shared memory per
+# block, which covers what the backward takes (3*K*R floats and at most
+# 24 KB for adding the dS of its thread groups)
 _MAX_RANK = 16
 _WARPS = 8
 _SMEM_LIMIT = 48 * 1024
@@ -113,7 +115,10 @@ def _lib():
     )
 
     lib = load_library()
-    lib.qsc_onebit_threads.argtypes, lib.qsc_onebit_threads.restype = [], _I
+    for fn in (lib.qsc_onebit_cols, lib.qsc_onebit_blocks):
+        fn.restype = _I
+    lib.qsc_onebit_cols.argtypes = [_I, _I]
+    lib.qsc_onebit_blocks.argtypes = [_I] * 4
     lib.qsc_onebit_nll_fwd.argtypes = [_P] * 5 + [_I] * 4 + [_F, _F, _P]
     lib.qsc_onebit_nll_fwd.restype = _I
     lib.qsc_onebit_nll_bwd.argtypes = [_P] * 7 + [_I] * 4 + [_F, _F, _P]
@@ -154,16 +159,17 @@ def _check(S_flat, C, codes, g=None):
     return B, R, K, P
 
 
-def _nblk(P: int) -> int:
-    t = _lib().qsc_onebit_threads()
-    return (P + t - 1) // t
+def _nblk(R: int, K: int, P: int, bwd: bool) -> int:
+    """Partial sums per map of the forward or backward kernel: the size of
+    its scratch (the kernels pick their tiling from R, K and P)."""
+    return _lib().qsc_onebit_blocks(R, K, P, int(bwd))
 
 
 def onebit_nll_fwd_cuda(S_flat, C, codes, mean: float, sigma: float):
     """Forward kernel: nll [B].  Counts its launches in ``.launches``."""
     B, R, K, P = _check(S_flat, C, codes)
     lib = _lib()
-    partial = torch.empty(B, _nblk(P), device=S_flat.device)
+    partial = torch.empty(B, _nblk(R, K, P, False), device=S_flat.device)
     out = torch.empty(B, device=S_flat.device)
     with torch.cuda.device(S_flat.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -183,7 +189,7 @@ def onebit_nll_bwd_cuda(S_flat, C, codes, g, mean: float, sigma: float):
     lib = _lib()
     dS = torch.empty_like(S_flat)
     dC = torch.empty_like(C)
-    partial = torch.empty(B, _nblk(P), K * R, device=S_flat.device)
+    partial = torch.empty(B, _nblk(R, K, P, True), K * R, device=S_flat.device)
     with torch.cuda.device(S_flat.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.qsc_onebit_nll_bwd(

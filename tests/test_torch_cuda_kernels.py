@@ -43,12 +43,16 @@ def gen():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("rank", [2, 10])
+@pytest.mark.parametrize("rank", [1, 2, 7, 10, 16])
 @pytest.mark.parametrize("masked", [False, True])
-def test_kernels_match_plain(gen, rank, masked):
-    """Bench shapes (B=256, K=64, 51x51): value rtol 1e-5, gradients within
-    1e-4 of max |grad|."""
-    B, K, I = 256, 64, 51
+@pytest.mark.parametrize("B,K,I", [(256, 64, 51), (8, 5, 10), (8, 64, 10),
+                                   (8, 5, 51)])
+def test_kernels_match_plain(gen, rank, masked, B, K, I):
+    """The bench shapes (B=256, K=64, 51x51) and ragged ones (P = 100 or
+    2601, K = 5 or 64: neither a multiple of a thread's tile of columns or
+    bands), every tile width the kernels pick (ranks 1..16): value rtol
+    1e-5, gradients within 1e-4 of max |grad|; a second launch gives the
+    same bits."""
     S = 0.05 * torch.rand(B, rank, I * I, generator=gen, device="cuda")
     C = torch.rand(B, K, rank, generator=gen, device="cuda")
     y01 = (torch.rand(B, K, I, I, generator=gen, device="cuda") < 0.5).float()
@@ -58,12 +62,15 @@ def test_kernels_match_plain(gen, rank, masked):
     g = 0.5 + torch.rand(B, generator=gen, device="cuda")
     v = k.onebit_nll_fwd_cuda(S, C, codes, MEAN, STD)
     dS, dC = k.onebit_nll_bwd_cuda(S, C, codes, g, MEAN, STD)
+    v2 = k.onebit_nll_fwd_cuda(S, C, codes, MEAN, STD)
+    dS2, dC2 = k.onebit_nll_bwd_cuda(S, C, codes, g, MEAN, STD)
     torch.cuda.synchronize()
     v0 = k.onebit_nll_plain(S, C, codes, MEAN, STD)
     dS0, dC0 = k.onebit_nll_grad_plain(S, C, codes, g, MEAN, STD)
     assert ((v - v0).abs() / v0.abs()).max() <= 1e-5
     assert (dS - dS0).abs().max() <= 1e-4 * dS0.abs().max()
     assert (dC - dC0).abs().max() <= 1e-4 * dC0.abs().max()
+    assert torch.equal(v, v2) and torch.equal(dS, dS2) and torch.equal(dC, dC2)
 
 
 @pytest.mark.cuda

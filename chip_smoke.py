@@ -12,14 +12,20 @@ Phases, each printing one line with its seconds:
                10% entry mask; value rtol 1e-5, gradients 1e-4 of max |grad|;
                a second launch must give the same bits
   4. parity_ordinal - the four ordinal kernels (bounds and coded, forward
-               and backward) against their plain versions, same tolerances,
-               R=2 and R=10, with and without a 10% mask, on three cases:
-               (a) log link, 4-bin log table, sigma 5 (fast numerics), B=1;
+               and backward), each against its plain version, same
+               tolerances, R=2 and R=10, with and without a 10% mask, on
+               four cases:
+               (a) log link, 4-bin log table, sigma 5 (fast numerics), B=1,
+                   K=64, 51x51: the MLE-GAN shape;
                (b) log link, 8-bin log table, sigma 1 (robust numerics), B=1;
                (c) linear link, 2 bins split at 0.0045, sigma 0.008, B=256;
-               the coded kernels must give the bounds kernels' results
-               bitwise; and the forward as the z-search scorer, N=201
-               candidates sharing C and the observations
+               (d) as (b) at B=3, K=70, 37x37: a partial tile of columns and
+                   a partial chunk of bands in the coded kernels;
+               a second launch of each must give the same bits, and the
+               coded kernels must agree with the bounds kernels within the
+               same tolerances; and the forward as the z-search scorer,
+               N=201 candidates sharing C and the observations, bitwise
+               equal to N single launches
   5. main    - the bench protocol through the port's entry points:
                generate_map_batch -> dither_probit -> recover_lowrank_mle
                (50 outer x (5 S + 5 C) Adam steps, rank-10 projection every
@@ -86,8 +92,8 @@ KERNELS = {
     "onebit_nll_bwd": ("onebit_nll.cu", 638),
     "quantized_nll_fwd": ("quantized_nll.cu", 157),
     "quantized_nll_bwd": ("quantized_nll.cu", 168),
-    "quantized_nll_coded_fwd": ("quantized_nll.cu", 442),
-    "quantized_nll_coded_bwd": ("quantized_nll.cu", 454),
+    "quantized_nll_coded_fwd": ("quantized_nll_coded.cu", 442),
+    "quantized_nll_coded_bwd": ("quantized_nll_coded.cu", 454),
 }
 ORDINAL = ("quantized_nll_fwd", "quantized_nll_bwd",
            "quantized_nll_coded_fwd", "quantized_nll_coded_bwd")
@@ -198,13 +204,16 @@ def ordinal_cases():
     from quantized_spectrum_cartography_tpu_torch.ops.kernels import (
         quantized_nll as q)
 
-    # name -> (boundary table, sigma, offset, linear link, batch)
+    # name -> (boundary table, sigma, offset, linear link, batch, bands, grid)
+    log8 = (bnd.QUANTIZATION_BOUNDARIES_8_BINS_LOG, 1.0, bnd.LOG_OFFSET_4,
+            False)
     return {
         "a_log4_sigma5": (bnd.QUANTIZATION_BOUNDARIES_4_BINS_LOG, 5.0,
-                          bnd.LOG_OFFSET_4, False, 1),
-        "b_log8_sigma1": (bnd.QUANTIZATION_BOUNDARIES_8_BINS_LOG, 1.0,
-                          bnd.LOG_OFFSET_4, False, 1),
-        "c_onebit_linear": (q.onebit_bounds(MEAN), STD, 0.0, True, BATCH),
+                          bnd.LOG_OFFSET_4, False, 1, BANDS, GRID),
+        "b_log8_sigma1": log8 + (1, BANDS, GRID),
+        "c_onebit_linear": (q.onebit_bounds(MEAN), STD, 0.0, True, BATCH,
+                            BANDS, GRID),
+        "d_log8_odd": log8 + (3, 70, 37),
     }
 
 
@@ -217,10 +226,10 @@ def ordinal_inputs(gen, case, R, masked):
     from quantized_spectrum_cartography_tpu_torch.physics import (
         sample_entry_mask)
 
-    table, sigma, offset, linear, B = case
-    S = 0.05 * torch.rand(B, R, GRID * GRID, generator=gen, device=DEVICE)
-    C = torch.rand(B, BANDS, R, generator=gen, device=DEVICE)
-    X = torch.matmul(C, S).reshape(B, BANDS, GRID, GRID)
+    table, sigma, offset, linear, B, K, I = case
+    S = 0.05 * torch.rand(B, R, I * I, generator=gen, device=DEVICE)
+    C = torch.rand(B, K, R, generator=gen, device=DEVICE)
+    X = torch.matmul(C, S).reshape(B, K, I, I)
     Y = (quantize(X, sigma, table, gen) if linear
          else quantize_log(X, sigma, table, offset, gen))
     mask = (sample_entry_mask(gen, tuple(Y.shape), MASK_FRACTION,
@@ -238,49 +247,72 @@ def parity_ordinal():
     gen = torch.Generator(device=DEVICE).manual_seed(1)
     errs = dict.fromkeys(ORDINAL, 0.0)
     for name, case in ordinal_cases().items():
-        table, sigma, offset, linear, _ = case
+        table, sigma, offset, linear = case[:4]
         st = (sigma, offset, linear, q._fast_ok(sigma))
         for R in PARITY_RANKS:
             for masked in (False, True):
                 S, C, (W, U), codes, g = ordinal_inputs(gen, case, R, masked)
-                out = {
-                    "quantized_nll_fwd": (
+                calls = {
+                    "quantized_nll_fwd": lambda: (
                         q.quantized_nll_fwd_cuda(S, C, W, U, *st),),
-                    "quantized_nll_bwd": q.quantized_nll_bwd_cuda(
+                    "quantized_nll_bwd": lambda: q.quantized_nll_bwd_cuda(
                         S, C, W, U, g, *st),
-                    "quantized_nll_coded_fwd": (
+                    "quantized_nll_coded_fwd": lambda: (
                         q.quantized_nll_coded_fwd_cuda(S, C, codes, table,
                                                        *st),),
-                    "quantized_nll_coded_bwd": q.quantized_nll_coded_bwd_cuda(
-                        S, C, codes, table, g, *st),
+                    "quantized_nll_coded_bwd": lambda: (
+                        q.quantized_nll_coded_bwd_cuda(S, C, codes, table, g,
+                                                       *st)),
                 }
+                out = {kname: fn() for kname, fn in calls.items()}
+                again = {kname: fn() for kname, fn in calls.items()}
                 torch.cuda.synchronize()
-                v0 = q.quantized_nll_plain(S, C, W, U, *st)
-                grads0 = q.quantized_nll_grad_plain(S, C, W, U, g, *st)
-                (v,), grads = out["quantized_nll_fwd"], out["quantized_nll_bwd"]
-                rel_v, (rel_s, rel_c) = rel_errs(v, v0, grads, grads0)
-                bitwise = all(torch.equal(a, b) for a, b in zip(
-                    out["quantized_nll_fwd"] + out["quantized_nll_bwd"],
-                    out["quantized_nll_coded_fwd"]
-                    + out["quantized_nll_coded_bwd"]))
-                print(f"parity {name} R={R} mask={masked}: value rel "
-                      f"{rel_v:.2e}, dS {rel_s:.2e}, dC {rel_c:.2e} of max,"
-                      f" coded == bounds bitwise {bitwise}", flush=True)
-                if not (rel_v <= VALUE_RTOL and rel_s <= GRAD_RTOL
-                        and rel_c <= GRAD_RTOL and bitwise):
+                bitwise = all(torch.equal(a, b) for kname in calls
+                              for a, b in zip(out[kname], again[kname]))
+                ref = {"fwd": (q.quantized_nll_plain(S, C, W, U, *st),),
+                       "bwd": q.quantized_nll_grad_plain(S, C, W, U, g, *st)}
+                coded_ref = {
+                    "fwd": (q.quantized_nll_coded_plain(S, C, codes, table,
+                                                        *st),),
+                    "bwd": q.quantized_nll_coded_grad_plain(
+                        S, C, codes, table, g, *st)}
+                # each kernel against its plain version, and the coded
+                # kernels against the bounds kernels
+                pairs = {
+                    "bounds": ("quantized_nll_fwd", "quantized_nll_bwd", ref),
+                    "coded": ("quantized_nll_coded_fwd",
+                              "quantized_nll_coded_bwd", coded_ref),
+                    "coded vs bounds": (
+                        "quantized_nll_coded_fwd", "quantized_nll_coded_bwd",
+                        {"fwd": out["quantized_nll_fwd"],
+                         "bwd": out["quantized_nll_bwd"]}),
+                }
+                ok, line = bitwise, []
+                for label, (fwd, bwd, r) in pairs.items():
+                    rel_v, (rel_s, rel_c) = rel_errs(
+                        out[fwd][0], r["fwd"][0], out[bwd], r["bwd"])
+                    ok = ok and (rel_v <= VALUE_RTOL and rel_s <= GRAD_RTOL
+                                 and rel_c <= GRAD_RTOL)
+                    line.append(f"{label}: value rel {rel_v:.2e}, dS "
+                                f"{rel_s:.2e}, dC {rel_c:.2e} of max")
+                print(f"parity {name} R={R} mask={masked}: "
+                      + "; ".join(line) + f"; second launch bitwise "
+                      f"{bitwise}", flush=True)
+                if not ok:
                     fail(f"ordinal kernels disagree: {name} R={R} "
-                         f"mask={masked}")
+                         f"mask={masked}, or with themselves")
                 for kname in ORDINAL:
-                    ref = (v0,) if kname.endswith("fwd") else grads0
+                    r = (ref if "coded" not in kname else coded_ref)[
+                        kname[-3:]]
                     errs[kname] = max(errs[kname], *(
                         (a - b).abs().max().item()
-                        for a, b in zip(out[kname], ref)))
+                        for a, b in zip(out[kname], r)))
 
     # the forward as the z-search scorer: N candidates share C and the
     # observations (batch stride 0); one launch against N single launches
-    table, sigma, offset, _, _ = ordinal_cases()["a_log4_sigma5"]
-    S, C, bounds, codes, _ = ordinal_inputs(
-        gen, ordinal_cases()["a_log4_sigma5"], RANK, True)
+    case = ordinal_cases()["a_log4_sigma5"]
+    table, sigma, offset = case[:3]
+    S, C, bounds, codes, _ = ordinal_inputs(gen, case, RANK, True)
     cand = 0.05 * torch.rand(SCORER_N, RANK, GRID * GRID, generator=gen,
                              device=DEVICE)
     for obs, bb in ((bounds, None), ((codes,), table)):

@@ -157,8 +157,10 @@ def _tool(name):
     return str(Path(_build._nvcc()).with_name(name))
 
 
-def ptxas_report(log_text):
-    """{kernel: (registers, spill store bytes)} of the 1-bit kernels."""
+def ptxas_report(log_text, match="onebit", short=None):
+    """{kernel: (registers, spill store bytes)} of the kernels whose mangled
+    name holds `match` (the 1-bit kernels by default), named by `short`."""
+    short = short or _short
     report, name, spills = {}, None, 0
     for line in log_text.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
@@ -168,8 +170,8 @@ def ptxas_report(log_text):
         if m:
             spills = int(m.group(1))
         m = re.search(r"Used (\d+) registers", line)
-        if m and name and "onebit" in name:
-            report[_short(name)] = (int(m.group(1)), spills)
+        if m and name and match in name:
+            report[short(name)] = (int(m.group(1)), spills)
     return report
 
 
@@ -215,18 +217,23 @@ def direct_path(instrs, index, lo, hi):
     return n
 
 
-def sass_loops(lib_path, sass_out=None):
+def sass_loops(lib_path, sass_out=None, match="onebit", short=None,
+               keep=lambda name: name.endswith("<2>")):
     """{kernel: (static instructions, direct-path instructions, MUFU) of its
-    largest innermost loop}; the rank-2 kernels' SASS goes to `sass_out`."""
+    largest innermost loop that holds a MUFU}, for the kernels whose
+    mangled name holds `match`, named by `short`; the SASS of those whose
+    short name `keep` accepts (the rank-2 ones by default) goes to
+    `sass_out`."""
+    short = short or _short
     text = subprocess.run([_tool("cuobjdump"), "-sass", str(lib_path)],
                           capture_output=True, text=True, check=True,
                           timeout=300).stdout
     out = {}
     for chunk in re.split(r"\n\s*Function : ", text)[1:]:
         name = chunk.split(None, 1)[0]
-        if "onebit" not in name:
+        if match not in name:
             continue
-        if sass_out and _short(name).endswith("<2>"):
+        if sass_out and keep(short(name)):
             with open(sass_out, "a") as f:
                 f.write(f"Function : {chunk}\n")
         instrs, index = [], {}
@@ -240,13 +247,18 @@ def sass_loops(lib_path, sass_out=None):
             m = re.search(r"\bBRA\s+(0x[0-9a-f]+)", ins)
             if m and index.get(int(m.group(1), 16), i + 1) <= i:
                 loops.append((index[int(m.group(1), 16)], i))
+        # the innermost loop that runs the numerics: one with a MUFU in it
+        # and no other such loop inside (a loop of the boundary decode
+        # nested in a band loop does not count)
+        loops = [lp for lp in loops if any(
+            "MUFU" in x for x in instrs[lp[0]:lp[1] + 1])]
         inner = [lp for lp in loops if not any(
             lp[0] <= o[0] and o[1] <= lp[1] and o != lp for o in loops)]
         if not inner:
             continue
         lo, hi = max(inner, key=lambda lp: lp[1] - lp[0])
         body = [x for x in instrs[lo:hi + 1] if not x.startswith("NOP")]
-        out[_short(name)] = (len(body), direct_path(instrs, index, lo, hi),
+        out[short(name)] = (len(body), direct_path(instrs, index, lo, hi),
                              sum("MUFU" in x for x in body))
     return out
 

@@ -1,155 +1,69 @@
 // Ordinal probit NLL of a rank-R reconstruction, forward and backward, for
-// Hopper (sm_90a), with the observations as f32 bin bounds (W, U) or as int8
-// bin codes decoded in registers.
+// Hopper (sm_90a), with the observations as f32 bin bounds (W, U).  The
+// int8-coded kernels are in quantized_nll_coded.cu; the numerics both use
+// are in ordinal.cuh.
 //
-// Replaces four TPU kernels in
+// Replaces two TPU kernels in
 // quantized_spectrum_cartography_tpu/ops/pallas/fused_likelihood.py:
-//   _fwd_kernel (called by _fwd_pallas), bounds, and
-//   _fwd_kernel_coded (called by _fwd_pallas_coded), codes:
+//   _fwd_kernel (called by _fwd_pallas):
 //     nll[b] = -sum_{k,p} log(Phi((U - x)/s) - Phi((W - x)/s)),
 //     x = log(X + offset) (log link) or X (linear link), X[b] = C[b] @ S[b];
-//   _bwd_kernel (called by _bwd_pallas) and
-//   _bwd_kernel_coded (called by _bwd_pallas_coded):
+//   _bwd_kernel (called by _bwd_pallas):
 //     dX = -g[b] * dlogP/dx * (1 or 1/(X + offset)),
 //     dS[b] = C[b]^T dX,  dC[b] = dX S[b]^T.
-// Codes: code c < nbins has bounds (bb[c], bb[c+1]); code >= nbins is masked.
-// Bounds: (W, U) = (-1e4, +1e4) is masked (the JAX package's MASK_SENTINEL).
+// (W, U) = (-1e4, +1e4) is masked (the JAX package's MASK_SENTINEL).
 // A masked entry adds exactly 0 to the value and to the gradient, as in the
 // JAX kernels, where erf saturates to +-1 and log 1 = 0; here it is skipped.
-// Layout: S [B,R,P] f32, C [B,K,R] f32, W/U [B,K,P] f32 or codes [B,K,P]
-// int8, P = I*J (no lane padding), with a batch stride per input that may be
-// 0: the z-search scorer shares C and the observations across candidates.
+// Layout: S [B,R,P] f32, C [B,K,R] f32, W/U [B,K,P] f32, P = I*J (no lane
+// padding), with a batch stride per input that may be 0: the z-search
+// scorer shares C and the observations across candidates.
 //
-// What bounds it on an H100 (3.35 TB/s, 67 TFLOP/s f32 outside tensor cores):
-// - bounds kernels: bytes.  Every entry reads 8 B of (W, U); at the MLE-GAN
-//   shape (B=1, K=64, P=2601) that is 1.3 MB, 0.4 us, far below the time of
-//   a launch; at the low-rank shape (B=256) 341 MB, about 0.1 ms.
-// - coded kernels: 1 B per entry, so where most entries are observed the
-//   arithmetic bounds them: the TPU kernels' cost estimate (_coded_cost,
-//   fused_likelihood.py:472) is 2R + 25 flops and 4 transcendentals per
-//   entry forward, 6R + 30 and 5 backward; 0.02-0.03 ms at the low-rank
-//   shape.  With a 10% sample (MLE-GAN) the skipped entries leave bytes as
-//   the bound again, and at B=1 either bound is far below a launch.
-// Design (simple and deterministic first, as onebit_nll.cu):
+// What bounds it on an H100 (3.35 TB/s, 67 TFLOP/s f32 outside tensor
+// cores): bytes.  Every entry reads 8 B of (W, U); at the MLE-GAN shape
+// (B=1, K=64, P=2601) that is 1.3 MB, 0.4 us, far below the time of a
+// launch; at the low-rank shape (B=256) 341 MB, about 0.1 ms.
+// Design (simple and deterministic first, as onebit_nll.cu was):
 // - one thread per spatial column p, looping over the K bands, so X[b,:,p]
 //   and dS[b,:,p] stay in registers; C (K x R) sits in shared memory;
 // - masked entries are skipped, so with a 10% sample the transcendental
 //   work falls to a tenth, while every observation byte is still read;
-// - the boundary table (<= 33 floats) travels by value in the kernel's
-//   parameter struct (__grid_constant__), and a code is decoded by a select
-//   chain over it, as _bounds_from_codes does; no per-element memory load;
 // - the forward writes one partial sum per block, dC is reduced per warp
 //   with shuffles and across warps in shared memory, and a second pass sums
 //   the per-block partials in a fixed order: no float atomics, so a run and
 //   a resumed run are bitwise equal.
-// The numerics are the JAX kernels' own (common.cuh, and below): _log_prob
-// with its flip (a + b) > 0 and _log1mexp's series/direct split at -ln 2 and
-// its -1e-12 clamp, _dlogp_dx's min(., 30), and the fast path's floor of
-// 1e-38, which is subnormal in f32: build without --use_fast_math or -ftz.
 
-#include "common.cuh"
+#include "ordinal.cuh"
 
 using namespace qsc;
 
 constexpr float kSentinel = 1e4f;
-constexpr int kMaxTable = 33;     // nbins + 1 boundaries, nbins < 32
 
 // The kernels' arguments, passed by value (__grid_constant__).
 struct QnllParams {
   const float* S;
   const float* C;
-  const float* W;        // bounds kernels
+  const float* W;
   const float* U;
-  const int8_t* codes;   // coded kernels
   const float* g;        // backward: [B]
   float* partial;        // forward: [B, nblk]; backward: [B, nblk, K*R]
   float* dS;             // backward: [B, R, P]
   long long stride_S, stride_C, stride_obs;   // batch strides, 0: shared
-  int K, P, nbins;
+  int K, P;
   float inv_s, offset;
-  float bb[kMaxTable];
 };
 
 namespace {
 
-// log(1 - e^d) for d <= -1e-12 (fused_likelihood.py:_log1mexp).
-__device__ __forceinline__ float log1mexp(float d) {
-  if (d > -0.6931472f) {
-    const float ds = fminf(fmaxf(d, -0.6931472f), -1e-12f);
-    const float series = 1.0f + ds * (0.5f + ds * (
-        1.0f / 6.0f + ds * (1.0f / 24.0f + ds / 120.0f)));
-    return logf(-ds * series);
-  }
-  return logf(1.0f - expf(d));
-}
-
-// log(Phi(b) - Phi(a)), b > a, robust in both tails
-// (fused_likelihood.py:_log_prob).
-__device__ __forceinline__ float log_prob(float a, float b) {
-  const bool flip = (a + b) > 0.0f;
-  const float lo = flip ? -b : a;
-  const float hi = flip ? -a : b;
-  const float l_lo = log_ndtr(lo);
-  const float l_hi = log_ndtr(hi);
-  const float diff = fminf(l_lo - l_hi, -1e-12f);
-  return l_hi + log1mexp(diff);
-}
-
-// log((erf(b/sqrt2) - erf(a/sqrt2))/2) (fused_likelihood.py:_log_prob_fast).
-__device__ __forceinline__ float log_prob_fast(float a, float b) {
-  const float ea = as_erf(a * kInvSqrt2);
-  const float eb = as_erf(b * kInvSqrt2);
-  return logf(fmaxf(0.5f * (eb - ea), 1e-38f));
-}
-
-// d log P / dx (fused_likelihood.py:_dlogp_dx).
-__device__ __forceinline__ float dlogp_dx(float a, float b, float logP,
-                                          float inv_s) {
-  const float log_phi_a = -0.5f * a * a - kLogSqrt2Pi;
-  const float log_phi_b = -0.5f * b * b - kLogSqrt2Pi;
-  const float ra = expf(fminf(log_phi_a - logP, 30.0f));
-  const float rb = expf(fminf(log_phi_b - logP, 30.0f));
-  return (ra - rb) * inv_s;
-}
-
 // The bin bounds of entry idx; false where it is masked.
-template <bool CODED>
 __device__ __forceinline__ bool bin_bounds(const QnllParams& p, size_t idx,
                                            float& w, float& u) {
-  if constexpr (CODED) {
-    const int code = p.codes[idx];
-    if (code < 0 || code >= p.nbins) return false;
-    w = -kSentinel;
-    u = kSentinel;
-    for (int i = 0; i < p.nbins; ++i) {
-      if (code == i) {
-        w = p.bb[i];
-        u = p.bb[i + 1];
-      }
-    }
-    return true;
-  } else {
-    w = p.W[idx];
-    u = p.U[idx];
-    return !(w <= -kSentinel && u >= kSentinel);
-  }
+  w = p.W[idx];
+  u = p.U[idx];
+  return !(w <= -kSentinel && u >= kSentinel);
 }
 
-template <bool LINEAR, bool FAST>
-struct Entry {
-  float xo, a, b, logP;
-  __device__ __forceinline__ Entry(float X, float w, float u,
-                                   const QnllParams& p) {
-    xo = X + p.offset;
-    const float x = LINEAR ? X : logf(xo);
-    a = (w - x) * p.inv_s;
-    b = (u - x) * p.inv_s;
-    logP = FAST ? log_prob_fast(a, b) : log_prob(a, b);
-  }
-};
-
 // grid (nblk, B); dynamic shared memory: K*R + kWarps floats.
-template <int R, bool CODED, bool LINEAR, bool FAST>
+template <int R, bool LINEAR, bool FAST>
 __global__ void __launch_bounds__(kThreads) qnll_fwd_kernel(
     const __grid_constant__ QnllParams p) {
   extern __shared__ float smem[];
@@ -170,11 +84,11 @@ __global__ void __launch_bounds__(kThreads) qnll_fwd_kernel(
     const size_t obase = b * p.stride_obs + col;
     for (int k = 0; k < p.K; ++k) {
       float w, u;
-      if (!bin_bounds<CODED>(p, obase + (size_t)k * p.P, w, u)) continue;
+      if (!bin_bounds(p, obase + (size_t)k * p.P, w, u)) continue;
       float X = 0.0f;
 #pragma unroll
       for (int r = 0; r < R; ++r) X = fmaf(sC[k * R + r], s[r], X);
-      acc -= Entry<LINEAR, FAST>(X, w, u, p).logP;
+      acc -= Entry<LINEAR, FAST>(X, w, u, p.inv_s, p.offset).logP;
     }
   }
 
@@ -190,7 +104,7 @@ __global__ void __launch_bounds__(kThreads) qnll_fwd_kernel(
 }
 
 // grid (nblk, B); dynamic shared memory: K*R + kWarps*K*R floats.
-template <int R, bool CODED, bool LINEAR, bool FAST>
+template <int R, bool LINEAR, bool FAST>
 __global__ void __launch_bounds__(kThreads) qnll_bwd_kernel(
     const __grid_constant__ QnllParams p) {
   extern __shared__ float smem[];
@@ -216,11 +130,11 @@ __global__ void __launch_bounds__(kThreads) qnll_bwd_kernel(
   const size_t obase = b * p.stride_obs + col;
   for (int k = 0; k < p.K; ++k) {
     float dx = 0.0f, w, u;
-    if (valid && bin_bounds<CODED>(p, obase + (size_t)k * p.P, w, u)) {
+    if (valid && bin_bounds(p, obase + (size_t)k * p.P, w, u)) {
       float X = 0.0f;
 #pragma unroll
       for (int r = 0; r < R; ++r) X = fmaf(sC[k * R + r], s[r], X);
-      const Entry<LINEAR, FAST> e(X, w, u, p);
+      const Entry<LINEAR, FAST> e(X, w, u, p.inv_s, p.offset);
       const float dlogp = dlogp_dx(e.a, e.b, e.logP, p.inv_s);
       dx = -gb * (LINEAR ? dlogp : dlogp / e.xo);
     }
@@ -245,17 +159,17 @@ __global__ void __launch_bounds__(kThreads) qnll_bwd_kernel(
   }
 }
 
-template <bool BWD, bool CODED, bool LINEAR, bool FAST>
+template <bool BWD, bool LINEAR, bool FAST>
 int launch_rank(int R, dim3 grid, size_t smem, cudaStream_t stream,
                 const QnllParams& p) {
   switch (R) {
 #define QSC_CASE(r)                                                          \
     case r:                                                                  \
       if constexpr (BWD) {                                                   \
-        qnll_bwd_kernel<r, CODED, LINEAR, FAST>                              \
+        qnll_bwd_kernel<r, LINEAR, FAST>                                     \
             <<<grid, kThreads, smem, stream>>>(p);                           \
       } else {                                                               \
-        qnll_fwd_kernel<r, CODED, LINEAR, FAST>                              \
+        qnll_fwd_kernel<r, LINEAR, FAST>                                     \
             <<<grid, kThreads, smem, stream>>>(p);                           \
       }                                                                      \
       break;
@@ -267,49 +181,33 @@ int launch_rank(int R, dim3 grid, size_t smem, cudaStream_t stream,
 }
 
 template <bool BWD>
-int launch(bool coded, bool linear, bool fast, int R, dim3 grid, size_t smem,
+int launch(bool linear, bool fast, int R, dim3 grid, size_t smem,
            cudaStream_t stream, const QnllParams& p) {
-  if (coded) {
-    if (linear) {
-      return fast ? launch_rank<BWD, true, true, true>(R, grid, smem, stream, p)
-                  : launch_rank<BWD, true, true, false>(R, grid, smem, stream, p);
-    }
-    return fast ? launch_rank<BWD, true, false, true>(R, grid, smem, stream, p)
-                : launch_rank<BWD, true, false, false>(R, grid, smem, stream, p);
-  }
   if (linear) {
-    return fast ? launch_rank<BWD, false, true, true>(R, grid, smem, stream, p)
-                : launch_rank<BWD, false, true, false>(R, grid, smem, stream, p);
+    return fast ? launch_rank<BWD, true, true>(R, grid, smem, stream, p)
+                : launch_rank<BWD, true, false>(R, grid, smem, stream, p);
   }
-  return fast ? launch_rank<BWD, false, false, true>(R, grid, smem, stream, p)
-              : launch_rank<BWD, false, false, false>(R, grid, smem, stream, p);
+  return fast ? launch_rank<BWD, false, true>(R, grid, smem, stream, p)
+              : launch_rank<BWD, false, false>(R, grid, smem, stream, p);
 }
 
-// Fills the parameter struct; false if the table does not fit.
-bool make_params(QnllParams& p, const float* S, const float* C,
-                 const float* W, const float* U, const int8_t* codes,
-                 const float* table, int nbins, long long stride_S,
-                 long long stride_C, long long stride_obs, int K, int P,
-                 float inv_s, float offset) {
-  if (codes != nullptr && (nbins < 1 || nbins + 1 > kMaxTable)) return false;
-  p = QnllParams{};
+QnllParams make_params(const float* S, const float* C, const float* W,
+                       const float* U, long long stride_S, long long stride_C,
+                       long long stride_obs, int K, int P, float inv_s,
+                       float offset) {
+  QnllParams p{};
   p.S = S;
   p.C = C;
   p.W = W;
   p.U = U;
-  p.codes = codes;
   p.stride_S = stride_S;
   p.stride_C = stride_C;
   p.stride_obs = stride_obs;
   p.K = K;
   p.P = P;
-  p.nbins = codes != nullptr ? nbins : 0;
   p.inv_s = inv_s;
   p.offset = offset;
-  for (int i = 0; i < kMaxTable; ++i) {
-    p.bb[i] = (codes != nullptr && i <= nbins) ? table[i] : 0.0f;
-  }
-  return true;
+  return p;
 }
 
 }  // namespace
@@ -318,26 +216,20 @@ extern "C" {
 
 int qsc_qnll_threads() { return kThreads; }
 
-// Forward.  Pass (W, U) and codes = table = NULL for the bounds kernel, or
-// codes with its host table of nbins+1 floats and W = U = NULL for the coded
-// kernel.  partial: [B, nblk] scratch; out: [B].  Returns a cudaError_t.
+// Forward.  partial: [B, nblk] scratch; out: [B].  Returns a cudaError_t.
 int qsc_qnll_fwd(const float* S, const float* C, const float* W,
-                 const float* U, const int8_t* codes, const float* table,
-                 int nbins, float* partial, float* out, int B, int R, int K,
-                 int P, long long stride_S, long long stride_C,
+                 const float* U, float* partial, float* out, int B, int R,
+                 int K, int P, long long stride_S, long long stride_C,
                  long long stride_obs, float inv_s, float offset, int linear,
                  int fast, void* stream_ptr) {
   cudaStream_t stream = (cudaStream_t)stream_ptr;
-  QnllParams p;
-  if (!make_params(p, S, C, W, U, codes, table, nbins, stride_S, stride_C,
-                   stride_obs, K, P, inv_s, offset)) {
-    return (int)cudaErrorInvalidValue;
-  }
+  QnllParams p = make_params(S, C, W, U, stride_S, stride_C, stride_obs, K, P,
+                             inv_s, offset);
   p.partial = partial;
   const int nblk = (P + kThreads - 1) / kThreads;
   const size_t smem = (size_t)(K * R + kWarps) * sizeof(float);
-  const int err = launch<false>(codes != nullptr, linear != 0, fast != 0, R,
-                                dim3(nblk, B), smem, stream, p);
+  const int err = launch<false>(linear != 0, fast != 0, R, dim3(nblk, B),
+                                smem, stream, p);
   if (err != 0) return err;
   return launch_sum_partials(partial, out, B, nblk, 1, stream);
 }
@@ -345,24 +237,20 @@ int qsc_qnll_fwd(const float* S, const float* C, const float* W,
 // Backward, with the inputs of the forward and g: [B]; dS: [B,R,P];
 // dC_partial: [B, nblk, K*R] scratch; dC: [B,K,R].
 int qsc_qnll_bwd(const float* S, const float* C, const float* W,
-                 const float* U, const int8_t* codes, const float* table,
-                 int nbins, const float* g, float* dS, float* dC_partial,
+                 const float* U, const float* g, float* dS, float* dC_partial,
                  float* dC, int B, int R, int K, int P, long long stride_S,
                  long long stride_C, long long stride_obs, float inv_s,
                  float offset, int linear, int fast, void* stream_ptr) {
   cudaStream_t stream = (cudaStream_t)stream_ptr;
-  QnllParams p;
-  if (!make_params(p, S, C, W, U, codes, table, nbins, stride_S, stride_C,
-                   stride_obs, K, P, inv_s, offset)) {
-    return (int)cudaErrorInvalidValue;
-  }
+  QnllParams p = make_params(S, C, W, U, stride_S, stride_C, stride_obs, K, P,
+                             inv_s, offset);
   p.g = g;
   p.dS = dS;
   p.partial = dC_partial;
   const int nblk = (P + kThreads - 1) / kThreads;
   const size_t smem = (size_t)(1 + kWarps) * K * R * sizeof(float);
-  const int err = launch<true>(codes != nullptr, linear != 0, fast != 0, R,
-                               dim3(nblk, B), smem, stream, p);
+  const int err = launch<true>(linear != 0, fast != 0, R, dim3(nblk, B), smem,
+                               stream, p);
   if (err != 0) return err;
   return launch_sum_partials(dC_partial, dC, B, nblk, K * R, stream);
 }

@@ -1,5 +1,6 @@
 """Ordinal (multi-bit) probit NLL of a rank-R reconstruction: plain PyTorch
-versions and the hand-written CUDA kernels (``csrc/quantized_nll.cu``).
+versions and the hand-written CUDA kernels (``csrc/quantized_nll.cu`` on
+f32 bounds, ``csrc/quantized_nll_coded.cu`` on int8 codes).
 
 Port of the ordinal part of
 ``quantized_spectrum_cartography_tpu/ops/pallas/fused_likelihood.py``: the
@@ -45,8 +46,8 @@ from quantized_spectrum_cartography_tpu_torch.ops.kernels.numerics import (
 
 MASK_SENTINEL = 1e4     # |log-domain values| are < 30; +-1e4 => logP = 0
 _CODED_MAX_BINS = 32
-# as in csrc/quantized_nll.cu: ranks instantiated, warps per block, and the
-# default limit of dynamic shared memory per block
+# as in csrc/quantized_nll.cu: ranks instantiated, warps per block of the
+# bounds kernels, and the default limit of dynamic shared memory per block
 _MAX_RANK = 16
 _WARPS = 8
 _SMEM_LIMIT = 48 * 1024
@@ -240,20 +241,28 @@ def _lib():
     )
 
     lib = load_library()
-    lib.qsc_qnll_threads.argtypes, lib.qsc_qnll_threads.restype = [], _I
-    head = [_P] * 5 + [_TABLE, _I]
+    for fn in (lib.qsc_qnll_threads, lib.qsc_qnll_coded_tiles):
+        fn.restype = _I
+    lib.qsc_qnll_threads.argtypes = []
+    lib.qsc_qnll_coded_tiles.argtypes = [_I]
     tail = [_I] * 4 + [_L] * 3 + [_F] * 2 + [_I] * 2 + [_P]
-    lib.qsc_qnll_fwd.argtypes = head + [_P] * 2 + tail
-    lib.qsc_qnll_fwd.restype = _I
-    lib.qsc_qnll_bwd.argtypes = head + [_P] * 4 + tail
-    lib.qsc_qnll_bwd.restype = _I
+    lib.qsc_qnll_fwd.argtypes = [_P] * 6 + tail
+    lib.qsc_qnll_bwd.argtypes = [_P] * 8 + tail
+    lib.qsc_qnll_coded_fwd.argtypes = [_P] * 3 + [_TABLE, _I] + [_P] * 2 + tail
+    lib.qsc_qnll_coded_bwd.argtypes = [_P] * 3 + [_TABLE, _I] + [_P] * 4 + tail
+    for fn in (lib.qsc_qnll_fwd, lib.qsc_qnll_bwd, lib.qsc_qnll_coded_fwd,
+               lib.qsc_qnll_coded_bwd):
+        fn.restype = _I
     return lib
 
 
 def _check(S_flat, C, obs, g=None):
     """Validate what the kernels take; return (B, R, K, P, batch strides of
     S, C and the observations).  The forward (g None) shares an input of
-    leading size 1 across the batch; the backward takes per-map inputs."""
+    leading size 1 across the batch; the backward takes per-map inputs.
+    The bounds kernels keep C and (backward) the warps' dC sums in shared
+    memory, K*R floats each; the coded kernels' shared memory depends on R
+    only (csrc/quantized_nll_coded.cu), so K is free there."""
     tensors = [S_flat, C, *obs] + ([] if g is None else [g])
     if any(x.device.type != "cuda" for x in tensors):
         raise ValueError("the CUDA kernels take CUDA tensors only")
@@ -285,7 +294,7 @@ def _check(S_flat, C, obs, g=None):
         raise ValueError("inputs must be contiguous")
     if not 1 <= R <= _MAX_RANK:
         raise ValueError(f"rank {R} outside the kernels' 1..{_MAX_RANK}")
-    if (1 + _WARPS) * K * R * 4 > _SMEM_LIMIT:
+    if len(obs) == 2 and (1 + _WARPS) * K * R * 4 > _SMEM_LIMIT:
         raise ValueError(f"K*R = {K * R} needs more than 48 KB of shared memory")
     if B > 65535:
         raise ValueError(f"batch {B} exceeds the grid's 65535 maps")
@@ -294,58 +303,69 @@ def _check(S_flat, C, obs, g=None):
     return B, R, K, P, strides
 
 
-def _table(bb_vals):
-    if bb_vals is None:
-        return None, 0
+@functools.lru_cache(maxsize=None)
+def _table(bb_vals: Tuple[float, ...]):
+    """The boundary table as a ctypes array, and nbins; one per table."""
     n = len(bb_vals) - 1
     if not 1 <= n < _CODED_MAX_BINS:
         raise ValueError(f"{n} bins outside 1..{_CODED_MAX_BINS - 1}")
     return (ctypes.c_float * (n + 1))(*map(float, bb_vals)), n
 
 
-def _ptrs(obs):
-    """(W, U, codes) pointers, None where absent."""
-    if len(obs) == 2:
-        return obs[0].data_ptr(), obs[1].data_ptr(), None
-    return None, None, obs[0].data_ptr()
-
-
-def _nblk(P: int) -> int:
+@functools.lru_cache(maxsize=None)
+def _nblk(P: int, coded: bool) -> int:
+    """Partial sums per map: the size of a kernel's scratch."""
+    if coded:
+        return _lib().qsc_qnll_coded_tiles(P)
     t = _lib().qsc_qnll_threads()
     return (P + t - 1) // t
 
 
+def _launch(fn, name, S_flat, *args):
+    with torch.cuda.device(S_flat.device):
+        err = fn(*args, torch.cuda.current_stream().cuda_stream)
+    raise_on_error(err, name)
+
+
 def _fwd_cuda(S_flat, C, obs, bb_vals, sigma, offset, linear, fast):
     B, R, K, P, (sS, sC, sO) = _check(S_flat, C, obs)
-    table, nbins = _table(bb_vals)
     lib = _lib()
-    partial = torch.empty(B, _nblk(P), device=S_flat.device)
-    out = torch.empty(B, device=S_flat.device)
-    with torch.cuda.device(S_flat.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.qsc_qnll_fwd(
-            S_flat.data_ptr(), C.data_ptr(), *_ptrs(obs), table, nbins,
-            partial.data_ptr(), out.data_ptr(), B, R, K, P, sS, sC, sO,
-            _inv_s(sigma), float(offset), int(linear), int(fast), stream)
-    raise_on_error(err, "quantized_nll_fwd")
+    coded = bb_vals is not None
+    # the output and the scratch in one allocation
+    buf = torch.empty(B * (1 + _nblk(P, coded)), device=S_flat.device)
+    out, partial = buf[:B], buf[B:]
+    tail = (B, R, K, P, sS, sC, sO, _inv_s(sigma), float(offset),
+            int(linear), int(fast))
+    if coded:
+        _launch(lib.qsc_qnll_coded_fwd, "quantized_nll_coded_fwd", S_flat,
+                S_flat.data_ptr(), C.data_ptr(), obs[0].data_ptr(),
+                *_table(tuple(bb_vals)), partial.data_ptr(), out.data_ptr(),
+                *tail)
+    else:
+        _launch(lib.qsc_qnll_fwd, "quantized_nll_fwd", S_flat,
+                S_flat.data_ptr(), C.data_ptr(), obs[0].data_ptr(),
+                obs[1].data_ptr(), partial.data_ptr(), out.data_ptr(), *tail)
     return out
 
 
 def _bwd_cuda(S_flat, C, obs, bb_vals, g, sigma, offset, linear, fast):
     B, R, K, P, (sS, sC, sO) = _check(S_flat, C, obs, g)
-    table, nbins = _table(bb_vals)
     lib = _lib()
+    coded = bb_vals is not None
     dS = torch.empty_like(S_flat)
     dC = torch.empty_like(C)
-    partial = torch.empty(B, _nblk(P), K * R, device=S_flat.device)
-    with torch.cuda.device(S_flat.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.qsc_qnll_bwd(
-            S_flat.data_ptr(), C.data_ptr(), *_ptrs(obs), table, nbins,
-            g.data_ptr(), dS.data_ptr(), partial.data_ptr(), dC.data_ptr(),
-            B, R, K, P, sS, sC, sO, _inv_s(sigma), float(offset),
-            int(linear), int(fast), stream)
-    raise_on_error(err, "quantized_nll_bwd")
+    partial = torch.empty(B, _nblk(P, coded), K * R, device=S_flat.device)
+    ptrs = (g.data_ptr(), dS.data_ptr(), partial.data_ptr(), dC.data_ptr())
+    tail = (B, R, K, P, sS, sC, sO, _inv_s(sigma), float(offset),
+            int(linear), int(fast))
+    if coded:
+        _launch(lib.qsc_qnll_coded_bwd, "quantized_nll_coded_bwd", S_flat,
+                S_flat.data_ptr(), C.data_ptr(), obs[0].data_ptr(),
+                *_table(tuple(bb_vals)), *ptrs, *tail)
+    else:
+        _launch(lib.qsc_qnll_bwd, "quantized_nll_bwd", S_flat,
+                S_flat.data_ptr(), C.data_ptr(), obs[0].data_ptr(),
+                obs[1].data_ptr(), *ptrs, *tail)
     return dS, dC
 
 

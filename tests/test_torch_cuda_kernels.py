@@ -139,26 +139,42 @@ def ordinal_inputs(gen, case, B, R, masked, K=64, I=51):
 @pytest.mark.parametrize("case", sorted(ORDINAL))
 @pytest.mark.parametrize("rank", [2, 10])
 @pytest.mark.parametrize("masked", [False, True])
-def test_ordinal_kernels_match_plain(gen, case, rank, masked):
-    """Both encodings, forward and backward, against the plain versions:
+@pytest.mark.parametrize("B,K,I", [(8, 64, 51), (1, 64, 51), (3, 70, 37)])
+def test_ordinal_kernels_match_plain(gen, case, rank, masked, B, K, I):
+    """Both encodings, forward and backward, each against its plain version:
     value rtol 1e-5, gradients within 1e-4 of max |grad|; the coded kernels
-    give bitwise the bounds kernels' results (the same floats go in)."""
+    against the bounds kernels within the same tolerances; a second launch
+    gives the same bits.  Shapes: a batch, the MLE-GAN shape (B=1), and one
+    whose P = 37*37 and K = 70 leave a partial tile of columns and a
+    partial chunk of bands in the coded kernels."""
     table, sigma, offset, linear = ORDINAL[case]
     fast = q._fast_ok(sigma)
-    S, C, (W, U), codes, g = ordinal_inputs(gen, case, 8, rank, masked)
+    S, C, (W, U), codes, g = ordinal_inputs(gen, case, B, rank, masked, K=K,
+                                            I=I)
     st = (sigma, offset, linear, fast)
-    v = q.quantized_nll_fwd_cuda(S, C, W, U, *st)
-    dS, dC = q.quantized_nll_bwd_cuda(S, C, W, U, g, *st)
-    vc = q.quantized_nll_coded_fwd_cuda(S, C, codes, table, *st)
-    dSc, dCc = q.quantized_nll_coded_bwd_cuda(S, C, codes, table, g, *st)
+
+    def run():
+        return (q.quantized_nll_fwd_cuda(S, C, W, U, *st),
+                *q.quantized_nll_bwd_cuda(S, C, W, U, g, *st),
+                q.quantized_nll_coded_fwd_cuda(S, C, codes, table, *st),
+                *q.quantized_nll_coded_bwd_cuda(S, C, codes, table, g, *st))
+
+    out, again = run(), run()
     torch.cuda.synchronize()
     v0 = q.quantized_nll_plain(S, C, W, U, *st)
     dS0, dC0 = q.quantized_nll_grad_plain(S, C, W, U, g, *st)
+    vc0 = q.quantized_nll_coded_plain(S, C, codes, table, *st)
+    dSc0, dCc0 = q.quantized_nll_coded_grad_plain(S, C, codes, table, g, *st)
+    v, dS, dC, vc, dSc, dCc = out
     assert torch.isfinite(v).all() and torch.isfinite(dS).all()
-    assert ((v - v0).abs() / v0.abs()).max() <= 1e-5
-    assert (dS - dS0).abs().max() <= 1e-4 * dS0.abs().max()
-    assert (dC - dC0).abs().max() <= 1e-4 * dC0.abs().max()
-    assert torch.equal(v, vc) and torch.equal(dS, dSc) and torch.equal(dC, dCc)
+    assert torch.isfinite(vc).all() and torch.isfinite(dSc).all()
+    for (a, b, c), (a0, b0, c0) in (((v, dS, dC), (v0, dS0, dC0)),
+                                    ((vc, dSc, dCc), (vc0, dSc0, dCc0)),
+                                    ((vc, dSc, dCc), (v, dS, dC))):
+        assert ((a - a0).abs() / a0.abs()).max() <= 1e-5
+        assert (b - b0).abs().max() <= 1e-4 * b0.abs().max()
+        assert (c - c0).abs().max() <= 1e-4 * c0.abs().max()
+    assert all(torch.equal(a, b) for a, b in zip(out, again))
 
 
 @pytest.mark.cuda

@@ -20,12 +20,13 @@ Phases, each printing one line with its seconds:
                (b) log link, 8-bin log table, sigma 1 (robust numerics), B=1;
                (c) linear link, 2 bins split at 0.0045, sigma 0.008, B=256;
                (d) as (b) at B=3, K=70, 37x37: a partial tile of columns and
-                   a partial chunk of bands in the coded kernels;
+                   a partial chunk of bands;
                a second launch of each must give the same bits, and the
-               coded kernels must agree with the bounds kernels within the
-               same tolerances; and the forward as the z-search scorer,
-               N=201 candidates sharing C and the observations, bitwise
-               equal to N single launches
+               coded kernels the bounds kernels' bits (one tile body, the
+               same entries in the same order); and the forward as the
+               z-search scorer, N=201 candidates sharing C and the
+               observations, bitwise equal to N single launches, on codes
+               bitwise equal to that on bounds
   5. main    - the bench protocol through the port's entry points:
                generate_map_batch -> dither_probit -> recover_lowrank_mle
                (50 outer x (5 S + 5 C) Adam steps, rank-10 projection every
@@ -277,17 +278,17 @@ def parity_ordinal():
                     "bwd": q.quantized_nll_coded_grad_plain(
                         S, C, codes, table, g, *st)}
                 # each kernel against its plain version, and the coded
-                # kernels against the bounds kernels
+                # kernels against the bounds kernels, bit for bit
                 pairs = {
                     "bounds": ("quantized_nll_fwd", "quantized_nll_bwd", ref),
                     "coded": ("quantized_nll_coded_fwd",
                               "quantized_nll_coded_bwd", coded_ref),
-                    "coded vs bounds": (
-                        "quantized_nll_coded_fwd", "quantized_nll_coded_bwd",
-                        {"fwd": out["quantized_nll_fwd"],
-                         "bwd": out["quantized_nll_bwd"]}),
                 }
-                ok, line = bitwise, []
+                same = all(torch.equal(a, b) for a, b in zip(
+                    out["quantized_nll_coded_fwd"]
+                    + out["quantized_nll_coded_bwd"],
+                    out["quantized_nll_fwd"] + out["quantized_nll_bwd"]))
+                ok, line = bitwise and same, []
                 for label, (fwd, bwd, r) in pairs.items():
                     rel_v, (rel_s, rel_c) = rel_errs(
                         out[fwd][0], r["fwd"][0], out[bwd], r["bwd"])
@@ -296,8 +297,8 @@ def parity_ordinal():
                     line.append(f"{label}: value rel {rel_v:.2e}, dS "
                                 f"{rel_s:.2e}, dC {rel_c:.2e} of max")
                 print(f"parity {name} R={R} mask={masked}: "
-                      + "; ".join(line) + f"; second launch bitwise "
-                      f"{bitwise}", flush=True)
+                      + "; ".join(line) + f"; coded == bounds bitwise "
+                      f"{same}; second launch bitwise {bitwise}", flush=True)
                 if not ok:
                     fail(f"ordinal kernels disagree: {name} R={R} "
                          f"mask={masked}, or with themselves")
@@ -315,8 +316,10 @@ def parity_ordinal():
     S, C, bounds, codes, _ = ordinal_inputs(gen, case, RANK, True)
     cand = 0.05 * torch.rand(SCORER_N, RANK, GRID * GRID, generator=gen,
                              device=DEVICE)
+    by_encoding = []
     for obs, bb in ((bounds, None), ((codes,), table)):
         scores = q.score_quantized_nll(cand, C, obs, sigma, offset, bb)
+        by_encoding.append(scores)
         torch.cuda.synchronize()
         one = torch.cat([q.score_quantized_nll(c[None], C, obs, sigma, offset,
                                                bb) for c in cand])
@@ -330,6 +333,11 @@ def parity_ordinal():
             fail("the scorer disagrees with plain or with single launches")
         kname = "quantized_nll_coded_fwd" if bb else "quantized_nll_fwd"
         errs[kname] = max(errs[kname], (scores - plain).abs().max().item())
+    same = torch.equal(*by_encoding)
+    print(f"parity scorer N={SCORER_N}: codes == bounds bitwise {same}",
+          flush=True)
+    if not same:
+        fail("the scorer gives other bits on codes than on bounds")
     return errs
 
 

@@ -11,7 +11,7 @@ it; MLE-GAN recovery under the Generator256 prior
 (``solvers.mle_gan.recover_mle_gan``); and every likelihood kernel of the
 JAX package, as CUDA C++: the 1-bit pair (``ops.kernels.onebit_nll``,
 ``csrc/onebit_nll.cu``) and the ordinal bounds/coded pairs
-(``ops.kernels.quantized_nll``, ``csrc/quantized_nll.cu``).
+(``ops.kernels.quantized_nll``, one tile body in ``csrc/ordinal_tile.cuh``).
 
 Layout
 ------

@@ -218,12 +218,13 @@ def direct_path(instrs, index, lo, hi):
 
 
 def sass_loops(lib_path, sass_out=None, match="onebit", short=None,
-               keep=lambda name: name.endswith("<2>")):
+               keep=lambda name: name.endswith("<2>"), classify=None):
     """{kernel: (static instructions, direct-path instructions, MUFU) of its
     largest innermost loop that holds a MUFU}, for the kernels whose
     mangled name holds `match`, named by `short`; the SASS of those whose
     short name `keep` accepts (the rank-2 ones by default) goes to
-    `sass_out`."""
+    `sass_out`.  With `classify` (a loop's instructions -> a label), a
+    kernel maps to {label: the largest such loop of that label}."""
     short = short or _short
     text = subprocess.run([_tool("cuobjdump"), "-sass", str(lib_path)],
                           capture_output=True, text=True, check=True,
@@ -256,10 +257,17 @@ def sass_loops(lib_path, sass_out=None, match="onebit", short=None,
             lp[0] <= o[0] and o[1] <= lp[1] and o != lp for o in loops)]
         if not inner:
             continue
-        lo, hi = max(inner, key=lambda lp: lp[1] - lp[0])
-        body = [x for x in instrs[lo:hi + 1] if not x.startswith("NOP")]
-        out[short(name)] = (len(body), direct_path(instrs, index, lo, hi),
-                             sum("MUFU" in x for x in body))
+        groups = {}
+        for lo, hi in inner:
+            label = classify(instrs[lo:hi + 1]) if classify else None
+            groups.setdefault(label, []).append((lo, hi))
+        read = {}
+        for label, lps in groups.items():
+            lo, hi = max(lps, key=lambda lp: lp[1] - lp[0])
+            body = [x for x in instrs[lo:hi + 1] if not x.startswith("NOP")]
+            read[label] = (len(body), direct_path(instrs, index, lo, hi),
+                           sum("MUFU" in x for x in body))
+        out[short(name)] = read if classify else read[None]
     return out
 
 

@@ -1,6 +1,7 @@
 """Ordinal (multi-bit) probit NLL of a rank-R reconstruction: plain PyTorch
-versions and the hand-written CUDA kernels (``csrc/quantized_nll.cu`` on
-f32 bounds, ``csrc/quantized_nll_coded.cu`` on int8 codes).
+versions and the hand-written CUDA kernels (one tile body,
+``csrc/ordinal_tile.cuh``, on f32 bounds in ``csrc/quantized_nll.cu`` and on
+int8 codes in ``csrc/quantized_nll_coded.cu``).
 
 Port of the ordinal part of
 ``quantized_spectrum_cartography_tpu/ops/pallas/fused_likelihood.py``: the
@@ -46,11 +47,8 @@ from quantized_spectrum_cartography_tpu_torch.ops.kernels.numerics import (
 
 MASK_SENTINEL = 1e4     # |log-domain values| are < 30; +-1e4 => logP = 0
 _CODED_MAX_BINS = 32
-# as in csrc/quantized_nll.cu: ranks instantiated, warps per block of the
-# bounds kernels, and the default limit of dynamic shared memory per block
-_MAX_RANK = 16
-_WARPS = 8
-_SMEM_LIMIT = 48 * 1024
+_MAX_RANK = 16          # ranks the kernels are instantiated for
+_MAX_P = 2 ** 25        # a chunk of 64 bands indexed in 32 bits
 
 
 # --------------------------------------------------------------------------
@@ -241,10 +239,8 @@ def _lib():
     )
 
     lib = load_library()
-    for fn in (lib.qsc_qnll_threads, lib.qsc_qnll_coded_tiles):
-        fn.restype = _I
-    lib.qsc_qnll_threads.argtypes = []
-    lib.qsc_qnll_coded_tiles.argtypes = [_I]
+    lib.qsc_qnll_tiles.restype = _I
+    lib.qsc_qnll_tiles.argtypes = [_I]
     tail = [_I] * 4 + [_L] * 3 + [_F] * 2 + [_I] * 2 + [_P]
     lib.qsc_qnll_fwd.argtypes = [_P] * 6 + tail
     lib.qsc_qnll_bwd.argtypes = [_P] * 8 + tail
@@ -260,9 +256,8 @@ def _check(S_flat, C, obs, g=None):
     """Validate what the kernels take; return (B, R, K, P, batch strides of
     S, C and the observations).  The forward (g None) shares an input of
     leading size 1 across the batch; the backward takes per-map inputs.
-    The bounds kernels keep C and (backward) the warps' dC sums in shared
-    memory, K*R floats each; the coded kernels' shared memory depends on R
-    only (csrc/quantized_nll_coded.cu), so K is free there."""
+    The kernels' shared memory depends on R only (csrc/ordinal_tile.cuh),
+    so K is free."""
     tensors = [S_flat, C, *obs] + ([] if g is None else [g])
     if any(x.device.type != "cuda" for x in tensors):
         raise ValueError("the CUDA kernels take CUDA tensors only")
@@ -294,8 +289,8 @@ def _check(S_flat, C, obs, g=None):
         raise ValueError("inputs must be contiguous")
     if not 1 <= R <= _MAX_RANK:
         raise ValueError(f"rank {R} outside the kernels' 1..{_MAX_RANK}")
-    if len(obs) == 2 and (1 + _WARPS) * K * R * 4 > _SMEM_LIMIT:
-        raise ValueError(f"K*R = {K * R} needs more than 48 KB of shared memory")
+    if P >= _MAX_P:
+        raise ValueError(f"{P} columns: the kernels take fewer than {_MAX_P}")
     if B > 65535:
         raise ValueError(f"batch {B} exceeds the grid's 65535 maps")
     strides = tuple(0 if n == 1 else x[0].numel()
@@ -313,12 +308,9 @@ def _table(bb_vals: Tuple[float, ...]):
 
 
 @functools.lru_cache(maxsize=None)
-def _nblk(P: int, coded: bool) -> int:
+def _nblk(P: int) -> int:
     """Partial sums per map: the size of a kernel's scratch."""
-    if coded:
-        return _lib().qsc_qnll_coded_tiles(P)
-    t = _lib().qsc_qnll_threads()
-    return (P + t - 1) // t
+    return _lib().qsc_qnll_tiles(P)
 
 
 def _launch(fn, name, S_flat, *args):
@@ -332,7 +324,7 @@ def _fwd_cuda(S_flat, C, obs, bb_vals, sigma, offset, linear, fast):
     lib = _lib()
     coded = bb_vals is not None
     # the output and the scratch in one allocation
-    buf = torch.empty(B * (1 + _nblk(P, coded)), device=S_flat.device)
+    buf = torch.empty(B * (1 + _nblk(P)), device=S_flat.device)
     out, partial = buf[:B], buf[B:]
     tail = (B, R, K, P, sS, sC, sO, _inv_s(sigma), float(offset),
             int(linear), int(fast))
@@ -354,7 +346,7 @@ def _bwd_cuda(S_flat, C, obs, bb_vals, g, sigma, offset, linear, fast):
     coded = bb_vals is not None
     dS = torch.empty_like(S_flat)
     dC = torch.empty_like(C)
-    partial = torch.empty(B, _nblk(P, coded), K * R, device=S_flat.device)
+    partial = torch.empty(B, _nblk(P), K * R, device=S_flat.device)
     ptrs = (g.data_ptr(), dS.data_ptr(), partial.data_ptr(), dC.data_ptr())
     tail = (B, R, K, P, sS, sC, sO, _inv_s(sigma), float(offset),
             int(linear), int(fast))

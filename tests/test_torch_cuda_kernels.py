@@ -121,33 +121,48 @@ def test_solver_on_card_matches_plain_and_resumes_bitwise(gen):
 
 
 def ordinal_inputs(gen, case, B, R, masked, K=64, I=51):
-    """S, C, (W, U), codes, g for one case: Y quantized from C@S itself."""
-    table, sigma, offset, linear = ORDINAL[case]
+    """S, C, (W, U), codes, g for one case: Y quantized from C@S itself;
+    for "onebit_half_sentinel", random signs packed as the 1-bit encodings
+    pack them ((mean, +1e4) and (-1e4, mean) as bounds)."""
     S = 0.05 * torch.rand(B, R, I * I, generator=gen, device="cuda")
     C = torch.rand(B, K, R, generator=gen, device="cuda")
-    X = torch.matmul(C, S).reshape(B, K, I, I)
-    Y = (quantize(X, sigma, table, gen) if linear
-         else quantize_log(X, sigma, table, offset, gen))
+    if case == "onebit_half_sentinel":
+        y01 = (torch.rand(B, K, I, I, generator=gen, device="cuda") < 0.5)
+        Y, table = y01.float(), q.onebit_bounds(MEAN)
+    else:
+        table, sigma, offset, linear = ORDINAL[case]
+        X = torch.matmul(C, S).reshape(B, K, I, I)
+        Y = (quantize(X, sigma, table, gen) if linear
+             else quantize_log(X, sigma, table, offset, gen))
     mask = ((torch.rand(B, K, I, I, generator=gen, device="cuda") < 0.1)
             .float() if masked else None)
     g = 0.5 + torch.rand(B, generator=gen, device="cuda")
+    if case == "onebit_half_sentinel":
+        return (S, C, q.pack_bounds_1bit(Y, MEAN, mask),
+                k.pack_codes_1bit(Y, mask), g)
     return (S, C, q.pack_bounds(Y, table, mask),
             q.pack_codes(Y, len(table) - 1, mask), g)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", sorted(ORDINAL))
-@pytest.mark.parametrize("rank", [2, 10])
-@pytest.mark.parametrize("masked", [False, True])
-@pytest.mark.parametrize("B,K,I", [(8, 64, 51), (1, 64, 51), (3, 70, 37)])
+@pytest.mark.parametrize("case,rank,masked,B,K,I", [
+    (case, rank, masked, B, K, I) for case in sorted(ORDINAL)
+    for rank in (2, 10) for masked in (False, True)
+    for B, K, I in ((8, 64, 51), (1, 64, 51), (3, 70, 37))
+] + [("log4_fast", 16, True, 2, 256, 51),
+     ("log8_robust", 16, False, 2, 256, 51),
+     ("onebit_half_sentinel", 2, True, 3, 70, 37)])
 def test_ordinal_kernels_match_plain(gen, case, rank, masked, B, K, I):
     """Both encodings, forward and backward, each against its plain version:
     value rtol 1e-5, gradients within 1e-4 of max |grad|; the coded kernels
-    against the bounds kernels within the same tolerances; a second launch
-    gives the same bits.  Shapes: a batch, the MLE-GAN shape (B=1), and one
-    whose P = 37*37 and K = 70 leave a partial tile of columns and a
-    partial chunk of bands in the coded kernels."""
-    table, sigma, offset, linear = ORDINAL[case]
+    give the bounds kernels' bits (one tile body, the same entries in the
+    same order); a second launch gives the same bits.  Shapes: a batch, the
+    MLE-GAN shape (B=1), one whose P = 37*37 and K = 70 leave a partial tile
+    of columns and a partial chunk of bands, K = 256 bands (four chunks) at
+    rank 16, and the 1-bit bounds with one bound at the sentinel."""
+    table, sigma, offset, linear = (
+        (q.onebit_bounds(MEAN), STD, 0.0, True)
+        if case == "onebit_half_sentinel" else ORDINAL[case])
     fast = q._fast_ok(sigma)
     S, C, (W, U), codes, g = ordinal_inputs(gen, case, B, rank, masked, K=K,
                                             I=I)
@@ -169,11 +184,11 @@ def test_ordinal_kernels_match_plain(gen, case, rank, masked, B, K, I):
     assert torch.isfinite(v).all() and torch.isfinite(dS).all()
     assert torch.isfinite(vc).all() and torch.isfinite(dSc).all()
     for (a, b, c), (a0, b0, c0) in (((v, dS, dC), (v0, dS0, dC0)),
-                                    ((vc, dSc, dCc), (vc0, dSc0, dCc0)),
-                                    ((vc, dSc, dCc), (v, dS, dC))):
+                                    ((vc, dSc, dCc), (vc0, dSc0, dCc0))):
         assert ((a - a0).abs() / a0.abs()).max() <= 1e-5
         assert (b - b0).abs().max() <= 1e-4 * b0.abs().max()
         assert (c - c0).abs().max() <= 1e-4 * c0.abs().max()
+    assert all(torch.equal(a, b) for a, b in zip((vc, dSc, dCc), (v, dS, dC)))
     assert all(torch.equal(a, b) for a, b in zip(out, again))
 
 
@@ -226,3 +241,7 @@ def test_ordinal_wrapper_rejects_bad_inputs(gen):
     with pytest.raises(ValueError, match="CUDA tensors"):
         q.quantized_nll_fwd_cuda(S.cpu(), C.cpu(), W.cpu(), U.cpu(), 5.0,
                                  1e-10)
+    wide = torch.zeros(1, 1, q._MAX_P, device="cuda")
+    with pytest.raises(ValueError, match="columns"):
+        q.quantized_nll_fwd_cuda(wide, C[:1, :1, :1].contiguous(), wide, wide,
+                                 5.0, 1e-10)

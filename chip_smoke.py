@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py          # from the repository root
+    python3 chip_smoke.py
 
 Phases, each printing one line with its seconds:
   1. device  - the card's name and power limit (nvidia-smi), torch and CUDA
@@ -34,7 +34,19 @@ Phases, each printing one line with its seconds:
                their shapes and finite costs, the final NMSE must be finite
                and < 1, and the same solve with nll_mode="plain" must reach
                the same final costs (rtol 1e-3)
-  6. main_gan - MLE-GAN at full width: a seeded Generator256, a problem it
+  6. checkpoints - the trained priors read from checkpoints/ by the port's
+               reader (no orbax): gan256/final, vae_best/final,
+               vae_peak_z256, ae_completion/final, each tree's paths and
+               shapes held against its _METADATA, and each leaf's dtype,
+               shape and sha256 against the digests of the JAX package's
+               loader (training/checkpoint_digests.json, held against it by
+               tests/test_torch_checkpoints.py); leaves, bytes, seconds;
+               then the priors on the path (Generator256, the vae_best and
+               vae_peak_z256 decoders) on the card against the same modules
+               on the CPU, which the CPU tests hold against flax: 8 seeded
+               latents, rtol 1e-4, atol 1e-5
+  7. main_gan - MLE-GAN at full width: the trained Generator256
+               (checkpoints/gan256/final), a problem it
                can realize (T = sum_r G(Z_true)_r |c_r|, K=64, 2 emitters,
                4-bin log quantizer, sigma 5, 10% entry mask), recover_mle_gan
                with SolverConfig() defaults (500 iterations, z-search of
@@ -42,12 +54,26 @@ Phases, each printing one line with its seconds:
                "codes": the counters must equal the launches the loop
                implies, costs finite and falling, C >= 0, the encodings'
                final costs within rtol 1e-3; then without the z-search,
-               kernels against nll_mode="plain" (rtol 1e-3)
-  7. main_lowrank_ordinal - recover_lowrank_mle at B=256 on obs_encoding
+               kernels against nll_mode="plain" (rtol 1e-3).  At these
+               defaults the NMSE stays near 1, as in the JAX package: C
+               starts at 0, where log(C S + 1e-10) makes the first C
+               gradient so large that Adam's second moment stalls C near
+               0.03, and sigma 5 leaves the 4 bins little to tell
+  8. main_vae - `recover --solver mle-gan` at the CLI's defaults, in this
+               process: the trained VAE prior (checkpoints/vae_best/final),
+               a simulated 51x51x64 map, R=2, 10% observed, the 4-bin log
+               quantizer at sigma 5, 100 iterations; the bounds pair must
+               launch 2*100+2 / 2*100 times and no other ordinal kernel, the
+               printed cost and NMSE be finite; then the same inputs through
+               recover_mle_gan with the kernels and with nll_mode="plain"
+               (final costs, rtol 1e-3; the final Z's difference printed);
+               then `recover --solver dowjons` at its defaults: finite,
+               falling costs and C >= 0
+  9. main_lowrank_ordinal - recover_lowrank_mle at B=256 on obs_encoding
                "codes" and "bounds", cut from 50 to 10 outer iterations to
                keep the plain solves short, each against nll_mode="plain"
                (final costs, rtol 1e-3)
-  8. timing  - every kernel's and its plain version's ms (CUDA events over
+  10. timing - every kernel's and its plain version's ms (CUDA events over
                back-to-back calls, in turns plain, kernel, kernel, plain),
                the kernel's device time (graph_ms: TIMING_REPS calls captured
                in one CUDA graph, its replays timed with CUDA events, so the
@@ -62,12 +88,15 @@ The line before the last two is the kernels' JSON record; then nvidia-smi's
 failure, or running past DEADLINE_S, exits non-zero without that line.
 """
 
+import contextlib
 import dataclasses
+import io
 import json
 import re
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import torch
 
@@ -98,6 +127,14 @@ KERNELS = {
 }
 ORDINAL = ("quantized_nll_fwd", "quantized_nll_bwd",
            "quantized_nll_coded_fwd", "quantized_nll_coded_bwd")
+ROOT = Path(__file__).resolve().parent
+CHECKPOINTS = {"gan256": "checkpoints/gan256/final",
+               "vae_best": "checkpoints/vae_best/final",
+               "vae_peak_z256": "checkpoints/vae_peak_z256",
+               "ae_completion": "checkpoints/ae_completion/final"}
+CLI_ITERS = 100                  # the CLI's --iters default
+OUT_DIR = ROOT / "build" / "chip_smoke"
+PRIOR_RTOL, PRIOR_ATOL = 1e-4, 1e-5
 
 _T0 = time.monotonic()
 
@@ -409,11 +446,86 @@ def timed(fn):
     return out, time.perf_counter() - t
 
 
-def main_gan(card):
-    """MLE-GAN at full width through the ordinal kernels, both encodings."""
+def _leaves(tree, prefix=()):
+    for name, node in tree.items():
+        if isinstance(node, dict):
+            yield from _leaves(node, prefix + (name,))
+        else:
+            yield prefix + (name,), node
+
+
+def checkpoints():
+    """The four trained trees through the port's reader, each held against
+    its _METADATA (the same paths, each array of its write shape, a
+    scalar's ()) and against the JAX loader's per-leaf digests."""
+    from quantized_spectrum_cartography_tpu_torch.training import (
+        load_checkpoint)
+    from quantized_spectrum_cartography_tpu_torch.training.checkpoints import (
+        DIGESTS, leaf_digests)
+
+    digests = json.loads(DIGESTS.read_text())
+    trees = {}
+    for name, path in CHECKPOINTS.items():
+        t = time.perf_counter()
+        tree = load_checkpoint(ROOT / path)
+        secs = time.perf_counter() - t
+        with open(ROOT / path / "_METADATA") as f:
+            meta = json.load(f)["tree_metadata"]
+        want = {tuple(k["key"] for k in e["key_metadata"]):
+                tuple(e["value_metadata"].get("write_shape") or ())
+                for e in meta.values()}
+        got = {p: a.shape for p, a in _leaves(tree)}
+        nbytes = sum(a.nbytes for _, a in _leaves(tree))
+        print(f"checkpoints {path}: {len(got)} leaves, {nbytes} bytes in "
+              f"{secs:.4f} s", flush=True)
+        if got != want:
+            fail(f"{path}: paths or shapes differ from _METADATA: "
+                 f"{sorted(set(got.items()) ^ set(want.items()))[:4]}")
+        got = leaf_digests(tree)
+        wrong = sorted(k for k in got.keys() | digests[path].keys()
+                       if got.get(k) != digests[path].get(k))
+        if wrong:
+            fail(f"{path}: leaves differ from the JAX loader's digests: "
+                 f"{wrong[:4]}")
+        trees[name] = tree
+    priors_on_card(trees)
+    return trees
+
+
+def priors_on_card(trees):
+    """The trained priors on the card against the same modules on the CPU
+    (held against flax by the CPU tests), on 8 seeded latents."""
+    from quantized_spectrum_cartography_tpu_torch.solvers import (
+        load_vae_prior, make_generator_apply)
+    from quantized_spectrum_cartography_tpu_torch.training import (
+        load_generator)
+
+    def gan(device):
+        return make_generator_apply(*load_generator(trees["gan256"], 256,
+                                                    device)), 256
+
+    def vae(name):
+        return lambda device: load_vae_prior(ROOT / CHECKPOINTS[name],
+                                             device)[:2]
+
+    for name, build in (("gan256", gan), ("vae_best", vae("vae_best")),
+                        ("vae_peak_z256", vae("vae_peak_z256"))):
+        (card_fn, z_dim), (cpu_fn, _) = build(DEVICE), build("cpu")
+        Z = torch.randn(8, z_dim, generator=torch.Generator().manual_seed(5))
+        with torch.no_grad():
+            got, want = card_fn(Z.to(DEVICE)).cpu(), cpu_fn(Z)
+        err = ((got - want).abs() - PRIOR_RTOL * want.abs()).max().item()
+        print(f"checkpoints {name} on the card vs the CPU: max abs diff "
+              f"{(got - want).abs().max().item():.3g}", flush=True)
+        if not (got.shape == want.shape and err <= PRIOR_ATOL):
+            fail(f"{name}: the card's prior differs from the CPU's")
+
+
+def main_gan(card, trees):
+    """MLE-GAN at full width through the ordinal kernels, both encodings,
+    under the trained Generator256."""
     from quantized_spectrum_cartography_tpu_torch.config import (
         QuantizerConfig, SolverConfig)
-    from quantized_spectrum_cartography_tpu_torch.models import Generator256
     from quantized_spectrum_cartography_tpu_torch.ops import boundaries as bnd
     from quantized_spectrum_cartography_tpu_torch.ops.kernels import (
         quantized_nll as q)
@@ -424,8 +536,11 @@ def main_gan(card):
         sample_entry_mask)
     from quantized_spectrum_cartography_tpu_torch.solvers import (
         make_generator_apply, recover_mle_gan)
+    from quantized_spectrum_cartography_tpu_torch.training import (
+        load_generator)
 
-    gen_apply = make_generator_apply(Generator256(seed=0).to(DEVICE))
+    gen_apply = make_generator_apply(*load_generator(trees["gan256"], 256,
+                                                     DEVICE))
     gen = torch.Generator(device=DEVICE).manual_seed(2)
     with torch.no_grad():
         S_true = gen_apply(torch.randn(RANK, 256, generator=gen,
@@ -458,9 +573,9 @@ def main_gan(card):
         want.update({fwd: expect["fwd"], bwd: expect["bwd"]})
         costs = res.costs
         print(f"main_gan {enc}: launches {got}; costs {costs[0].item():.2f} "
-              f"-> {costs[-1].item():.2f}, final NMSE "
-              f"{res.nmses[-1].item():.4f}; {secs:.3f} s per map on {card}",
-              flush=True)
+              f"-> {costs[-1].item():.2f}, NMSE {res.nmses[0].item():.4f} -> "
+              f"{res.nmses[-1].item():.4f}, best {res.nmses.min().item():.4f};"
+              f" {secs:.3f} s per map on {card}", flush=True)
         if got != want:
             fail(f"MLE-GAN {enc}: launches {got}, the loop implies {want}")
         if not (costs.shape == (scfg.max_iters,)
@@ -495,6 +610,75 @@ def main_gan(card):
     inputs = (S_flat, C, obs, qcfg.boundaries, qcfg.noise_std,
               qcfg.log_offset, False, q._fast_ok(qcfg.noise_std))
     return launches, inputs
+
+
+def run_cli(argv):
+    """cli.main(argv) in this process; (its last printed line, seconds)."""
+    from quantized_spectrum_cartography_tpu_torch import cli
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        _, secs = timed(lambda: cli.main(argv))
+    print(out.getvalue(), end="", flush=True)
+    return out.getvalue().strip().splitlines()[-1], secs
+
+
+def main_vae(card):
+    """`recover --solver mle-gan` at the CLI's defaults (the trained VAE
+    prior) through the bounds pair, against the plain likelihood on the
+    same inputs; then `recover --solver dowjons` at its defaults."""
+    import numpy as np
+
+    from quantized_spectrum_cartography_tpu_torch import cli
+    from quantized_spectrum_cartography_tpu_torch.ops.kernels import (
+        quantized_nll as q)
+
+    argv = ["recover", "--solver", "mle-gan"]
+    q.reset_launches()
+    line, secs = run_cli(argv)
+    got = {name: getattr(q, name + "_cuda").launches for name in ORDINAL}
+    want = dict.fromkeys(ORDINAL, 0)
+    want.update({"quantized_nll_fwd": 2 * CLI_ITERS + 2,
+                 "quantized_nll_bwd": 2 * CLI_ITERS})
+    printed = json.loads(line)
+    print(f"main_vae cli: launches {got}; {secs:.3f} s per map on {card}",
+          flush=True)
+    if got != want:
+        fail(f"recover --solver mle-gan: launches {got}, expected {want}")
+    if not (printed["iters"] == CLI_ITERS
+            and np.isfinite(printed["final_cost"])
+            and np.isfinite(printed["final_nmse"])):
+        fail(f"recover --solver mle-gan printed {printed}")
+
+    rec = cli.recovery(argv)
+    kern, kern_s = timed(rec.run)
+    plain, plain_s = timed(lambda: rec.run(nll_mode="plain"))
+    c, c0 = kern.costs[-1], plain.costs[-1]
+    rel = ((c - c0).abs() / c0.abs()).item()
+    dz = (kern.aux["Z"] - plain.aux["Z"]).abs().max().item()
+    print(f"main_vae recover_mle_gan: kernels {kern_s:.3f} s, plain "
+          f"{plain_s:.3f} s per map on {card}; costs "
+          f"{kern.costs[0].item():.2f} -> {c.item():.2f}, final NMSE "
+          f"{kern.nmses[-1].item():.4f}; final cost vs plain rel {rel:.2e}, "
+          f"final Z max abs diff {dz:.3g}, C equal "
+          f"{torch.equal(kern.C, plain.C)}, vs the CLI's "
+          f"{abs(c.item() - printed['final_cost']):.3g}", flush=True)
+    if not (torch.isfinite(kern.costs).all() and rel <= COST_RTOL):
+        fail(f"VAE-prior MLE-GAN: kernel and plain solves disagree: {rel}")
+
+    OUT_DIR.mkdir(parents=True, exist_ok=True)
+    out = str(OUT_DIR / "dowjons.npz")
+    line, secs = run_cli(["recover", "--solver", "dowjons", "--out", out])
+    res = np.load(out)
+    costs = res["costs"]
+    print(f"main_vae dowjons: costs {costs[0]:.2f} -> {costs[-1]:.2f}, final "
+          f"NMSE {res['nmses'][-1]:.4f}; {secs:.3f} s per map on {card}",
+          flush=True)
+    if not (costs.shape == (CLI_ITERS,) and np.isfinite(costs).all()
+            and costs[-1] < costs[0] and (res["C"] >= 0).all()):
+        fail("recover --solver dowjons: costs not finite and falling, "
+             "or C < 0")
+    return {k: v for k, v in got.items() if v}
 
 
 def main_lowrank_ordinal(T_obs):
@@ -703,8 +887,11 @@ def main():
     errs = phase("parity", parity)
     errs.update(phase("parity_ordinal", parity_ordinal))
     launches, inputs_1bit, T_obs = phase("main", lambda: main_path(card))
-    launches_gan, inputs_gan = phase("main_gan", lambda: main_gan(card))
+    trees = phase("checkpoints", checkpoints)
+    launches_gan, inputs_gan = phase("main_gan",
+                                     lambda: main_gan(card, trees))
     launches.update(launches_gan)
+    launches_vae = phase("main_vae", lambda: main_vae(card))
     launches_lr, inputs_lr = phase("main_lowrank_ordinal",
                                    lambda: main_lowrank_ordinal(T_obs))
     ms, bounds, ms_lr, bounds_lr = phase(
@@ -719,6 +906,7 @@ def main():
             "ms": ms[name][0], "graph_ms": ms[name][2],
             "plain_ms": ms[name][1], "bound_ms": bounds[name][0],
             "bound_by": bounds[name][1], "library_ms": None,
+            "main_vae_launches": launches_vae.get(name, 0),
         }
         if name in ORDINAL:
             rec["lowrank_b256"] = {

@@ -7,19 +7,23 @@ caller passes ``device="cpu"``.
 
 Ported so far: the batched 1-bit low-rank MLE recovery path
 (``solvers.lowrank_mle.recover_lowrank_mle``) and the simulator that feeds
-it; MLE-GAN recovery under the Generator256 prior
-(``solvers.mle_gan.recover_mle_gan``); and every likelihood kernel of the
-JAX package, as CUDA C++: the 1-bit pair (``ops.kernels.onebit_nll``,
-``csrc/onebit_nll.cu``) and the ordinal bounds/coded pairs
-(``ops.kernels.quantized_nll``, one tile body in ``csrc/ordinal_tile.cuh``).
+it; MLE-GAN recovery (``solvers.mle_gan.recover_mle_gan``) under the
+Generator256 or the VAE prior, and DowJons (``solvers.dowjons``); the
+completion autoencoders and the VAE; the trained priors read from the JAX
+package's orbax checkpoints without orbax (``training.checkpoints``); and
+every likelihood kernel of the JAX package, as CUDA C++: the 1-bit pair
+(``ops.kernels.onebit_nll``, ``csrc/onebit_nll.cu``) and the ordinal
+bounds/coded pairs (``ops.kernels.quantized_nll``, one tile body in
+``csrc/ordinal_tile.cuh``).
 
 Layout
 ------
 - ``ops``       quantizer, boundary tables, likelihood, rank-R
                 reconstruction, metrics, kernels
 - ``physics``   synthetic radio-map simulator
-- ``models``    the DCGAN generators (deep priors)
-- ``training``  generator weights from the JAX package's parameter trees
+- ``models``    the deep priors: DCGAN generators, autoencoders, the VAE
+- ``training``  the JAX package's checkpoints (an OCDBT/zarr reader) and
+                their parameter trees mapped onto the models
 - ``solvers``   recovery loops and the randomized latent search
 - ``csrc``      hand-written CUDA sources, built at first use into ``build/``
 """

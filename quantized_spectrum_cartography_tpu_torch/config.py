@@ -1,4 +1,5 @@
-"""Typed configuration: copies of the JAX package's dataclasses.
+"""Typed configuration: copies of the JAX package's dataclasses, and the
+INI / JSON config-file loader.
 
 Field names and defaults match ``quantized_spectrum_cartography_tpu/config.py``
 (checked by ``tests/test_torch_config.py``).  They are copied, not imported,
@@ -7,7 +8,11 @@ so that the port runs without JAX.
 
 from __future__ import annotations
 
+import configparser
 import dataclasses
+import json
+import os
+import typing
 from typing import Tuple
 
 
@@ -79,3 +84,99 @@ class SolverConfig:
     nonneg_slf: bool = False
     sample_fraction: float = 0.1
     mask_mode: str = "per_entry"    # 'per_entry' (qmc.ipynb) | 'per_location' (.mat fixture)
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    """Device mesh for sharded batched recovery."""
+
+    data_axis: int = -1      # -1: all devices on the data (batch-of-maps) axis
+    model_axis: int = 1      # frequency (K) axis sharding factor
+    axis_names: Tuple[str, str] = ("data", "model")
+
+
+@dataclasses.dataclass(frozen=True)
+class ProblemConfig:
+    physics: PhysicsConfig = dataclasses.field(default_factory=PhysicsConfig)
+    quantizer: QuantizerConfig = dataclasses.field(default_factory=QuantizerConfig)
+    solver: SolverConfig = dataclasses.field(default_factory=SolverConfig)
+    mesh: MeshConfig = dataclasses.field(default_factory=MeshConfig)
+    seed: int = 0
+
+
+_SECTION_TYPES = {
+    "physics": PhysicsConfig,
+    "quantizer": QuantizerConfig,
+    "solver": SolverConfig,
+    "mesh": MeshConfig,
+}
+
+
+def _coerce(raw: str, typ):
+    """An INI string as a value of the dataclass field's type."""
+    origin = typing.get_origin(typ)
+    if origin is typing.Union:  # Optional[...]
+        args = [a for a in typing.get_args(typ) if a is not type(None)]
+        if raw.lower() in ("none", "null", ""):
+            return None
+        return _coerce(raw, args[0])
+    if origin in (tuple, list):
+        parts = [p for p in raw.replace(",", " ").split() if p]
+        sub = typing.get_args(typ)[0] if typing.get_args(typ) else float
+        vals = [_coerce(p, sub) for p in parts]
+        return tuple(vals) if origin is tuple else vals
+    if typ is bool:
+        return raw.strip().lower() in ("1", "true", "yes", "on")
+    if typ is int:
+        return int(raw)
+    if typ is float:
+        return float(raw)
+    return raw
+
+
+def _build_section(cls, entries: dict):
+    hints = typing.get_type_hints(cls)
+    fields = {f.name for f in dataclasses.fields(cls)}
+    kwargs = {}
+    for key, val in entries.items():
+        name = key.replace("-", "_")
+        if name not in fields:
+            raise ValueError(
+                f"unknown {cls.__name__} field '{key}' in config file")
+        typ = hints[name]
+        if isinstance(val, str):
+            val = _coerce(val, typ)
+        elif isinstance(val, list) and typing.get_origin(typ) is tuple:
+            val = tuple(val)
+        kwargs[name] = val
+    return cls(**kwargs)
+
+
+def load_config_file(path: str) -> ProblemConfig:
+    """A ProblemConfig from an INI or JSON file: sections (JSON top-level
+    keys) [physics] [quantizer] [solver] [mesh], and the seed ([general]
+    seed in INI, a top-level "seed" in JSON).  Unknown sections and fields
+    raise."""
+    if not os.path.exists(path):
+        raise FileNotFoundError(path)
+    sections: dict = {}
+    seed = 0
+    if path.endswith(".json"):
+        with open(path) as f:
+            data = json.load(f)
+        seed = int(data.pop("seed", 0))
+        sections = data
+    else:
+        cp = configparser.ConfigParser()
+        cp.read(path)
+        for sec in cp.sections():
+            if sec == "general":
+                seed = cp.getint("general", "seed", fallback=0)
+                continue
+            sections[sec] = dict(cp.items(sec))
+    kwargs = {}
+    for name, entries in sections.items():
+        if name not in _SECTION_TYPES:
+            raise ValueError(f"unknown config section '{name}'")
+        kwargs[name] = _build_section(_SECTION_TYPES[name], entries)
+    return ProblemConfig(seed=seed, **kwargs)

@@ -1,5 +1,12 @@
 """Deep-prior networks (port of ``quantized_spectrum_cartography_tpu/models``)."""
 
+from quantized_spectrum_cartography_tpu_torch.models.ae import (  # noqa: F401
+    Autoencoder,
+    AutoencoderLinear,
+    Decoder,
+    Encoder,
+    EncoderDecoder,
+)
 from quantized_spectrum_cartography_tpu_torch.models.generator import (  # noqa: F401
     DCGANGenerator,
     Generator64,
@@ -7,4 +14,8 @@ from quantized_spectrum_cartography_tpu_torch.models.generator import (  # noqa:
     Generator256,
     Generator512,
     make_generator,
+)
+from quantized_spectrum_cartography_tpu_torch.models.vae import (  # noqa: F401
+    VAE,
+    betaVAE,
 )

@@ -3,14 +3,16 @@
 Copied value for value from ``quantized_spectrum_cartography_tpu/ops/boundaries.py``
 (the reference's `qmc/utils.py:10-54`), so the port runs without JAX; the
 tables are checked against the JAX package by ``tests/test_torch_ops.py``.
-The estimators `find_boundaries` and `fit_log_offset` are not ported yet.
+The two estimators, equal-count binning (`qmc/utils.py:57-74`) and the
+Gauss-Newton fit of the log offset (`qmc/nlls.py:18-37`), run on the host.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Sequence, Tuple
 
 import numpy as np
+import torch
 
 # --- linear-domain boundary tables (qmc/utils.py:10-27) ----------------------
 
@@ -85,3 +87,39 @@ QUANTIZATION_BOUNDARIES_16_ADJUSTED = (
 )
 LOG_OFFSET_7_ADJUSTED = 2.27e-05
 LOG_OFFSET_16_ADJUSTED = 2.3755e-07
+
+
+def find_boundaries(samples, num_bins: int = 4) -> Tuple[np.ndarray, float]:
+    """Equal-count binning: quantiles of the sorted samples (a tensor or
+    array), made strictly increasing by moving a repeated boundary to the
+    next larger sample; returns (boundaries [num_bins + 1] float64,
+    sd = the smallest gap)."""
+    if isinstance(samples, torch.Tensor):
+        samples = samples.detach().cpu().numpy()
+    data = np.sort(np.asarray(samples).reshape(-1))
+    qs = np.linspace(0.0, 1.0, num_bins + 1)
+    idx = np.clip((qs * (data.size - 1)).astype(np.int64), 0, data.size - 1)
+    bounds = data[idx].astype(np.float64)
+    for i in range(1, len(bounds)):
+        if bounds[i] <= bounds[i - 1]:
+            nxt = data[data > bounds[i - 1]]
+            bounds[i] = nxt[0] if nxt.size else bounds[i - 1] + 1e-12
+    sd = float(np.min(np.diff(bounds)))
+    return bounds, sd
+
+
+def fit_log_offset(
+    raw_boundaries: Sequence[float], iters: int = 40, init_offset: float = 1e-7
+) -> Tuple[float, float, torch.Tensor]:
+    """Gauss-Newton NLLS fit of (f, b) in y = log(f + x) + b with
+    y = 0..n-1, in float64 (the offsets span 9+ orders of magnitude);
+    returns (offset f, intercept b, log(f + x) as float32)."""
+    x = np.asarray(raw_boundaries, dtype=np.float64)
+    y = np.arange(x.shape[0], dtype=np.float64)
+    theta = np.array([init_offset, 0.0])
+    for _ in range(iters):
+        H = np.stack([1.0 / (theta[0] + x), np.ones_like(x)], axis=1)
+        r = y - (np.log(theta[0] + x) + theta[1])
+        theta = theta + np.linalg.solve(H.T @ H, H.T @ r)
+    return (float(theta[0]), float(theta[1]),
+            torch.as_tensor(np.log(theta[0] + x), dtype=torch.float32))

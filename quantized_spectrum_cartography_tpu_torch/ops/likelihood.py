@@ -14,7 +14,10 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from quantized_spectrum_cartography_tpu_torch.ops.quantizer import _SQRT2
+from quantized_spectrum_cartography_tpu_torch.ops.quantizer import (
+    F_probit,
+    _SQRT2,
+)
 
 # Effective probit scale: the reference evaluates erf(y/(std*1.414213)),
 # i.e. Phi(y/sigma_eff) with sigma_eff = std*1.414213/sqrt(2).
@@ -59,6 +62,32 @@ def log_prob_probit_bounds(
     return l_hi + torch.log((-torch.expm1(diff)).clamp(min=tiny))
 
 
+def prob_probit(
+    Y: torch.Tensor,
+    X_hat: torch.Tensor,
+    bin_boundaries,
+    noise_std,
+    clamp_outer: Optional[float] = None,
+) -> torch.Tensor:
+    """P(Y|X_hat) = Phi(U - X) - Phi(W - X) in the direct (non-log) form of
+    the reference (`qmc/quantization_model.py:22-39`); solvers take
+    `log_prob_probit`."""
+    W, U = gather_bin_bounds(Y, bin_boundaries, clamp_outer)
+    return F_probit(U - X_hat, noise_std) - F_probit(W - X_hat, noise_std)
+
+
+def log_prob_probit(
+    Y: torch.Tensor,
+    X_hat: torch.Tensor,
+    bin_boundaries,
+    noise_std,
+    clamp_outer: Optional[float] = None,
+) -> torch.Tensor:
+    """Stable log P(Y|X_hat) from bin indices (`log_prob_probit_bounds`)."""
+    W, U = gather_bin_bounds(Y, bin_boundaries, clamp_outer)
+    return log_prob_probit_bounds(W, U, X_hat, noise_std)
+
+
 def masked_nll(
     logP: torch.Tensor, mask: Optional[torch.Tensor] = None
 ) -> torch.Tensor:
@@ -93,6 +122,20 @@ def neg_likelihood_1bit(
         return bce.mean(dim=_MAP_DIMS)
     return ((mask * bce).sum(dim=_MAP_DIMS)
             / mask.sum(dim=_MAP_DIMS).clamp_min(1.0))
+
+
+def deterministic_cost(
+    T_hat: torch.Tensor,
+    T_target: torch.Tensor,
+    mean=0.0,
+    lambda_reg: float = 0.001,
+) -> torch.Tensor:
+    """Max-correlation deterministic cost per map,
+    -lambda * sum((T_hat - mean) * T_target) + ||T_hat - mean||_F
+    (reference `DeterministicCost`, `qmc/quantization_model.py:115-129`)."""
+    Tm = T_hat - mean
+    return (-lambda_reg * (Tm * T_target).sum(dim=_MAP_DIMS)
+            + Tm.square().sum(dim=_MAP_DIMS).sqrt())
 
 
 def pack_sign_mask(

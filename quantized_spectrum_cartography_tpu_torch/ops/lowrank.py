@@ -13,6 +13,11 @@ import torch
 _PROBE_SEED = 7
 
 
+def outer(mat: torch.Tensor, vec: torch.Tensor) -> torch.Tensor:
+    """vec[..., k] * mat[..., i, j] -> [..., K, I, J]."""
+    return torch.einsum("...ij,...k->...kij", mat, vec)
+
+
 def get_tensor(S: torch.Tensor, C: torch.Tensor) -> torch.Tensor:
     """T[..., k, i, j] = sum_r S[..., r, i, j] * C[..., r, k]."""
     return torch.einsum("...rij,...rk->...kij", S, C)
@@ -87,3 +92,10 @@ def project_rank_subspace(
     _, evecs = torch.linalg.eigh(B @ B.transpose(-1, -2))   # ascending
     U = Q @ evecs[..., -rank:]                     # [..., m, rank]
     return U @ (U.transpose(-1, -2) @ S)
+
+
+def init_factors(R: int, I: int, J: int, K: int, dtype=torch.float32,
+                 device=None):
+    """Zero-start factors S [R, I, J], C [R, K] (qmc.ipynb's 'zero start')."""
+    return (torch.zeros((R, I, J), dtype=dtype, device=device),
+            torch.zeros((R, K), dtype=dtype, device=device))

@@ -1,4 +1,4 @@
-"""Ordinal quantizer, probit link and 1-bit dither.
+"""Ordinal quantizer, links, dithers and the 1-bit wire format.
 
 Port of ``quantized_spectrum_cartography_tpu/ops/quantizer.py``.  The noise of
 `quantize`/`quantize_log` is drawn from a ``torch.Generator`` or passed in as
@@ -8,8 +8,10 @@ draws).
 
 from __future__ import annotations
 
+import math
 from typing import Optional, Sequence
 
+import numpy as np
 import torch
 
 _SQRT2 = 1.414213  # the reference hardcodes 1.414213 (quantization_model.py:61)
@@ -76,3 +78,35 @@ def dither_probit(y: torch.Tensor, std, generator: torch.Generator) -> torch.Ten
 
     ``generator`` must live on ``y``'s device."""
     return torch.bernoulli(F_probit(y, std), generator=generator).to(y.dtype)
+
+
+def log_F_probit(y: torch.Tensor, std) -> torch.Tensor:
+    """Stable log Phi(y/std) with the reference's probit scale, through
+    log_ndtr (finite in the deep tails where log of the erf form is not)."""
+    return torch.special.log_ndtr(y / (std * _SQRT2 / math.sqrt(2.0)))
+
+
+def F_sigmoid(y: torch.Tensor) -> torch.Tensor:
+    """Logistic link (reference `qmc/quantization_model.py:43-47`)."""
+    return torch.sigmoid(y)
+
+
+def dither_sigmoid(y: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+    """Sample z ~ Bernoulli(sigmoid(y)); ``generator`` on ``y``'s device."""
+    return torch.bernoulli(F_sigmoid(y), generator=generator).to(y.dtype)
+
+
+def pack_bits_host(y01) -> np.ndarray:
+    """Host-side bit-pack of 1-bit observations: {0,1} array -> uint8
+    [..., ceil(last/8)], most significant bit first (np.packbits along the
+    last axis), 1 bit an entry on the wire."""
+    return np.packbits(np.asarray(y01).astype(np.uint8), axis=-1)
+
+
+def unpack_bits(packed: torch.Tensor, last_dim: int) -> torch.Tensor:
+    """`pack_bits_host`'s output back to {0,1} float32 [..., last_dim], on
+    the device `packed` lies on."""
+    shifts = torch.arange(7, -1, -1, dtype=torch.uint8, device=packed.device)
+    bits = (packed.to(torch.uint8)[..., None] >> shifts) & 1
+    flat = bits.reshape(*packed.shape[:-1], packed.shape[-1] * 8)
+    return flat[..., :last_dim].to(torch.float32)

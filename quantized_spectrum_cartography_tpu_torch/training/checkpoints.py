@@ -1,24 +1,37 @@
-"""Generator weights from the JAX package's parameters, without orbax.
+"""The priors' weights: the JAX package's orbax checkpoints read without
+orbax, and flax parameter trees mapped onto the port's modules.
 
-The JAX package keeps its priors as orbax checkpoints (`checkpoints/`), which
-only orbax and tensorstore read.  Here the same parameter tree, as a nested
-dict of numpy arrays (what ``training/checkpoints.py:load_checkpoint`` of the
-JAX package returns, or an ``.npz`` written from it with "/"-joined keys),
-becomes a `DCGANGenerator` state_dict:
+`load_checkpoint` reads a checkpoint directory that the JAX package wrote
+(``training/checkpoints.py:save_checkpoint``, orbax's standard layout): the
+tree paths from ``_METADATA``, each array as zarr v2 chunks (``.zarray``
+metadata and zstd-compressed chunks) in the OCDBT store of `training.ocdbt`.
+It returns the nested dict of numpy arrays that the JAX package's
+``load_checkpoint(path)`` returns, with the same keys, dtypes, shapes and
+bits; scalars are 0-d arrays there and here.
 
-- flax ``ConvTranspose`` kernels [kh, kw, in, out] become torch's
+A flax parameter tree ({"params": ..., "batch_stats": ...}) becomes a torch
+state_dict:
+
+- ``ConvTranspose`` kernels [kh, kw, in, out] become torch's
   [in, out, kh, kw], flipped in both spatial axes: flax applies the kernel
   unflipped to the dilated input, torch's transpose convolution flips it;
 - ``Conv`` kernels [kh, kw, in, out] become [out, in, kh, kw], unflipped;
 - ``Dense`` kernels [in, out] become Linear weights [out, in];
 - BatchNorm ``scale``/``bias`` and ``batch_stats`` ``mean``/``var`` become
   ``weight``/``bias``/``running_mean``/``running_var``;
-- ``scale``, where the tree has one, is the output divisor that the CLI
-  applies to the generator (JAX ``cli.py:_load_prior``).
+- ``scale``, where a generator's tree has one, is the output divisor that
+  the CLI applies to the generator (JAX ``cli.py:_load_prior``).
+
+Saving waits for the port's trainers, which will save in torch's format.
 """
 
 from __future__ import annotations
 
+import hashlib
+import json
+import math
+import os
+from pathlib import Path
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
@@ -28,6 +41,115 @@ from quantized_spectrum_cartography_tpu_torch.models.generator import (
     DCGANGenerator,
     make_generator,
 )
+from quantized_spectrum_cartography_tpu_torch.training.ocdbt import (
+    FormatError,
+    OcdbtReader,
+    unzstd,
+)
+
+_VALUE_TYPES = ("jax.Array", "scalar")
+# per-leaf digests of the repository's trained trees as the JAX package's
+# loader returns them (held against it by tests/test_torch_checkpoints.py)
+DIGESTS = Path(__file__).with_name("checkpoint_digests.json")
+_DICT_KEY = 2          # orbax's key_type of a dict key
+
+
+def _zarr_array(store: OcdbtReader, name: str) -> np.ndarray:
+    """Array `name` from its ``.zarray`` metadata and chunks."""
+    where = f"{store.root}: {name}"
+    meta = json.loads(store[f"{name}/.zarray"])
+    if meta.get("zarr_format") != 2 or meta.get("filters"):
+        raise FormatError(f"{where}: not a zarr v2 array without filters")
+    compressor = meta.get("compressor")
+    if compressor is not None and compressor.get("id") != "zstd":
+        raise FormatError(f"{where}: unsupported compressor {compressor}")
+    try:
+        dtype = np.dtype(meta["dtype"])
+    except TypeError:
+        raise FormatError(f"{where}: unsupported dtype {meta['dtype']}") \
+            from None
+    shape, chunks = tuple(meta["shape"]), tuple(meta["chunks"])
+    if len(chunks) != len(shape) or meta["order"] not in ("C", "F"):
+        raise FormatError(f"{where}: bad chunks {chunks} or order")
+    sep = meta.get("dimension_separator", ".")
+    out = np.empty(shape, dtype.newbyteorder("="))
+    chunk_bytes = math.prod(chunks) * dtype.itemsize
+    for index in np.ndindex(*(-(-s // c) for s, c in zip(shape, chunks))):
+        key = f"{name}/{sep.join(map(str, index)) or '0'}"
+        if key not in store:
+            raise FormatError(f"{where}: chunk {key} missing")
+        raw = store[key]
+        raw = (unzstd(raw, f"{where}: chunk {key}", chunk_bytes)
+               if compressor is not None else raw)
+        if len(raw) != chunk_bytes:
+            raise FormatError(f"{where}: chunk {key} holds {len(raw)} "
+                              f"bytes, {chunk_bytes} expected")
+        chunk = np.frombuffer(raw, dtype).reshape(chunks, order=meta["order"])
+        region = tuple(slice(i * c, min((i + 1) * c, s))
+                       for i, c, s in zip(index, chunks, shape))
+        out[region] = chunk[tuple(slice(0, r.stop - r.start)
+                                  for r in region)]
+    return out
+
+
+def load_checkpoint(path: str) -> Dict[str, Any]:
+    """The nested dict of numpy arrays in the orbax checkpoint at `path`,
+    as the JAX package's ``load_checkpoint(path)`` returns it.  Any fault
+    in the tree raises (`FormatError` for its contents); nothing returns a
+    partial tree."""
+    path = os.path.abspath(path)
+    try:
+        with open(os.path.join(path, "_METADATA")) as f:
+            meta = json.load(f)
+    except FileNotFoundError:
+        raise FormatError(f"{path}: no _METADATA, not an orbax checkpoint") \
+            from None
+    if meta.get("use_zarr3"):
+        raise FormatError(f"{path}: zarr v3 arrays are not supported")
+    store = OcdbtReader(path)
+    tree: Dict[str, Any] = {}
+    for entry in meta["tree_metadata"].values():
+        keys = entry["key_metadata"]
+        value = entry["value_metadata"]
+        if (any(k["key_type"] != _DICT_KEY for k in keys)
+                or value["value_type"] not in _VALUE_TYPES
+                or value.get("skip_deserialize")):
+            raise FormatError(f"{path}: unsupported tree entry {entry}")
+        names = [k["key"] for k in keys]
+        node = tree
+        for name in names[:-1]:
+            node = node.setdefault(name, {})
+        array = _zarr_array(store, ".".join(names))
+        if value["value_type"] == "scalar" and array.dtype.itemsize == 8:
+            # a Python number, stored 64-bit; JAX hands it back as a 0-d
+            # array of its 32-bit default type
+            array = array.astype(f"{array.dtype.kind}4")
+        node[names[-1]] = array
+    return tree
+
+
+def leaf_digests(tree: Dict[str, Any], prefix: str = "") -> Dict[str, str]:
+    """{"/"-joined path: "dtype shape sha256 of the bytes"} of every leaf."""
+    out = {}
+    for name, node in tree.items():
+        if isinstance(node, dict):
+            out.update(leaf_digests(node, f"{prefix}{name}/"))
+        else:
+            a = np.ascontiguousarray(node)
+            out[prefix + name] = (f"{a.dtype.str} {list(a.shape)} "
+                                  f"{hashlib.sha256(a.tobytes()).hexdigest()}")
+    return out
+
+
+def latest_step_dir(root: str) -> Optional[str]:
+    """Most recent step_N subdirectory under a training run root."""
+    if not os.path.isdir(root):
+        return None
+    steps = [d for d in os.listdir(root) if d.startswith("step_")]
+    if not steps:
+        return None
+    best = max(steps, key=lambda d: int(d.split("_")[1]))
+    return os.path.join(root, best)
 
 
 def load_npz_tree(path: str) -> Dict[str, Any]:
@@ -48,31 +170,74 @@ def _t(x) -> torch.Tensor:
     return torch.from_numpy(np.array(x, dtype=np.float32))
 
 
+def _conv(kernel) -> torch.Tensor:
+    return _t(kernel).permute(3, 2, 0, 1).contiguous()
+
+
+def _convt(kernel) -> torch.Tensor:
+    return _t(kernel).flip(0, 1).permute(2, 3, 0, 1).contiguous()
+
+
+def _batch_norm(sd, prefix, params, stats) -> None:
+    sd[prefix + "weight"] = _t(params["scale"])
+    sd[prefix + "bias"] = _t(params["bias"])
+    sd[prefix + "running_mean"] = _t(stats["mean"])
+    sd[prefix + "running_var"] = _t(stats["var"])
+    sd[prefix + "num_batches_tracked"] = torch.tensor(0)
+
+
+# flax's auto-named layers -> the port's ModuleLists (`Conv_3` -> `conv.3`)
+_LISTS = {"Conv": "conv", "ConvTranspose": "convt", "BatchNorm": "bn"}
+
+
+def state_dict_from_flax(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """state_dict of the port's `models.ae` / `models.vae` modules (and,
+    renamed by `generator_state_dict_from_flax`, its generators) from a
+    flax {"params": ..., "batch_stats": ...} tree of the same module: named
+    submodules (``encoder``, ``mean_head``, ...) keep their names, flax's
+    ``<Layer>_<i>`` become ``<list>.<i>``, ``log_gain`` stays a parameter.
+    Other top-level entries (a VAE's ``latent_dim``, ...) are ignored."""
+    sd: Dict[str, torch.Tensor] = {}
+
+    def walk(params, stats, prefix):
+        for name, node in params.items():
+            kind, _, index = name.rpartition("_")
+            target = (f"{prefix}{_LISTS[kind]}.{index}."
+                      if kind in _LISTS and index.isdigit()
+                      else f"{prefix}{name}.")
+            if not isinstance(node, dict):
+                sd[target[:-1]] = _t(node)              # e.g. log_gain
+            elif kind == "BatchNorm":
+                _batch_norm(sd, target, node, stats[name])
+            elif "kernel" in node:
+                k = node["kernel"]
+                sd[target + "weight"] = (
+                    _convt(k) if kind == "ConvTranspose"
+                    else _conv(k) if k.ndim == 4 else _t(k).T.contiguous())
+                if "bias" in node:
+                    sd[target + "bias"] = _t(node["bias"])
+            else:
+                walk(node, stats.get(name, {}), target)
+
+    walk(tree["params"], tree.get("batch_stats", {}), "")
+    return sd
+
+
+# the generator's names where flax's differ: its Dense stem, its one Conv
+_GENERATOR_NAMES = (("Dense_0.", "stem."), ("conv.0.", "conv."))
+
+
 def generator_state_dict_from_flax(
     tree: Dict[str, Any],
 ) -> Tuple[Dict[str, torch.Tensor], float]:
     """(state_dict of `DCGANGenerator`, output scale) from a flax generator's
     {"params": ..., "batch_stats": ..., ["scale"]} tree."""
-    params, stats = tree["params"], tree["batch_stats"]
-    sd: Dict[str, torch.Tensor] = {}
-    if "Dense_0" in params:
-        sd["stem.weight"] = _t(params["Dense_0"]["kernel"]).T.contiguous()
-        sd["stem.bias"] = _t(params["Dense_0"]["bias"])
-    n = sum(1 for name in params if name.startswith("ConvTranspose_"))
-    for i in range(n):
-        ct = params[f"ConvTranspose_{i}"]
-        sd[f"convt.{i}.weight"] = (_t(ct["kernel"]).flip(0, 1)
-                                   .permute(2, 3, 0, 1).contiguous())
-        sd[f"convt.{i}.bias"] = _t(ct["bias"])
-        bn, st = params[f"BatchNorm_{i}"], stats[f"BatchNorm_{i}"]
-        sd[f"bn.{i}.weight"] = _t(bn["scale"])
-        sd[f"bn.{i}.bias"] = _t(bn["bias"])
-        sd[f"bn.{i}.running_mean"] = _t(st["mean"])
-        sd[f"bn.{i}.running_var"] = _t(st["var"])
-        sd[f"bn.{i}.num_batches_tracked"] = torch.tensor(0)
-    sd["conv.weight"] = (_t(params["Conv_0"]["kernel"])
-                         .permute(3, 2, 0, 1).contiguous())
-    sd["conv.bias"] = _t(params["Conv_0"]["bias"])
+    sd = {}
+    for key, value in state_dict_from_flax(tree).items():
+        for flax_name, name in _GENERATOR_NAMES:
+            if key.startswith(flax_name):
+                key = name + key[len(flax_name):]
+        sd[key] = value
     scale = float(np.asarray(tree["scale"])) if "scale" in tree else 1.0
     return sd, scale
 

@@ -1,7 +1,8 @@
 """The port's generators under the JAX package's weights: the converter of
 training/checkpoints.py on the repository's trained Generator256
-(checkpoints/gan256/final, read through the JAX package's orbax loader) and
-on freshly initialized flax generators of every size; the .npz tree reader."""
+(checkpoints/gan256/final, read by the port's own checkpoint reader, which
+gives the JAX package's orbax loader's tree) and on freshly initialized flax
+generators of every size; the .npz tree reader."""
 
 import jax
 import jax.numpy as jnp
@@ -10,13 +11,16 @@ import pytest
 import torch
 
 from quantized_spectrum_cartography_tpu import models as jmodels
-from quantized_spectrum_cartography_tpu.training import load_checkpoint
+from quantized_spectrum_cartography_tpu.training import (
+    load_checkpoint as jax_load_checkpoint,
+)
 from quantized_spectrum_cartography_tpu_torch import models as tmodels
 from quantized_spectrum_cartography_tpu_torch.solvers import (
     make_generator_apply,
 )
 from quantized_spectrum_cartography_tpu_torch.training import (
     generator_state_dict_from_flax,
+    load_checkpoint,
     load_generator,
     load_npz_tree,
 )
@@ -40,7 +44,16 @@ def _flat(tree, prefix=""):
 
 @pytest.fixture(scope="module")
 def trained():
-    return _numpy_tree(load_checkpoint(CHECKPOINT))
+    return load_checkpoint(CHECKPOINT)
+
+
+def test_trained_tree_is_jax_tree(trained):
+    """The port's reader gives the tree the JAX package's loader gives."""
+    ref = dict(_flat(_numpy_tree(jax_load_checkpoint(CHECKPOINT))))
+    got = dict(_flat(trained))
+    assert got.keys() == ref.keys()
+    for k, v in ref.items():
+        assert got[k].dtype == v.dtype and np.array_equal(got[k], v), k
 
 
 def _compare(jgen, jvars, tgen, z_dim, scale=1.0):

@@ -177,8 +177,9 @@ def test_unported_encodings_raise(problem, enc):
 
 
 def test_cli_recover_and_simulate(tmp_path, capsys):
-    """The port's CLI on the CPU: one-line JSON like the JAX package's, and
-    unported solvers exit with a message."""
+    """The port's CLI on the CPU: one-line JSON like the JAX package's, for
+    every solver (DowJons too, under the default VAE prior); the unported
+    .mat fixture exits with a message."""
     out = str(tmp_path / "res.npz")
     cli_main(["recover", "--solver", "lowrank", "--iters", "2", "--device",
               "cpu", "--out", out])
@@ -189,5 +190,11 @@ def test_cli_recover_and_simulate(tmp_path, capsys):
     maps = str(tmp_path / "maps.npz")
     cli_main(["simulate", "--batch", "2", "--device", "cpu", "--out", maps])
     assert np.load(maps)["T"].shape == (2, 64, 51, 51)
+    cli_main(["recover", "--solver", "dowjons", "--iters", "2", "--device",
+              "cpu"])
+    res = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert res["solver"] == "dowjons" and res["iters"] == 2
+    assert np.isfinite(res["final_cost"]) and np.isfinite(res["final_nmse"])
     with pytest.raises(SystemExit, match="not yet ported"):
-        cli_main(["recover", "--solver", "dowjons", "--device", "cpu"])
+        cli_main(["recover", "--fixture", "onebitdata1.mat", "--device",
+                  "cpu"])

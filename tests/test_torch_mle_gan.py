@@ -207,7 +207,8 @@ def test_entry_graph_matches_jax(gens):
 
 def test_cli_recover_mle_gan(gens, tmp_path, capsys):
     """`recover --solver mle-gan --prior-kind gan` on the CPU, with the
-    prior read from an .npz of the flax tree; the VAE prior is refused."""
+    prior read from an .npz of the flax tree, and from the trained
+    checkpoint directory; the default, the trained VAE prior."""
     variables = JGen().init(jax.random.PRNGKey(0), jnp.zeros((1, 256)),
                             train=False)
     flat = {}
@@ -223,5 +224,11 @@ def test_cli_recover_mle_gan(gens, tmp_path, capsys):
     assert res["solver"] == "mle-gan" and res["iters"] == 2
     assert np.isfinite(res["final_cost"]) and np.isfinite(res["final_nmse"])
     assert np.load(out)["S"].shape == (2, 51, 51)
-    with pytest.raises(NotImplementedError, match="Queue 1"):
-        cli_main(["recover", "--solver", "mle-gan", "--device", "cpu"])
+    # one iteration: the z-search (at iteration 1) does not run
+    for argv in (["--prior-kind", "gan", "--prior-checkpoint",
+                  "checkpoints/gan256/final"], []):
+        cli_main(["recover", "--solver", "mle-gan", "--iters", "1",
+                  "--device", "cpu"] + argv)
+        res = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+        assert res["iters"] == 1 and np.isfinite(res["final_cost"])
+        assert np.isfinite(res["final_nmse"])

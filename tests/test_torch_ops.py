@@ -289,3 +289,134 @@ def test_gather_bin_bounds_clamp_outer():
                                     jnp.asarray([0.0, 1.0, 2.0, 3.0]), 1e5)
     np.testing.assert_array_equal(W.numpy(), np.asarray(jW))
     np.testing.assert_array_equal(U.numpy(), np.asarray(jU))
+
+
+# --- the rest of the ops core: links, bit packing, metrics, likelihood,
+# factors, boundary estimators -------------------------------------------
+
+def test_log_F_probit_and_F_sigmoid_match(rng):
+    y = rng.normal(0.0, 0.05, (K, I, I)).astype(np.float32)
+    y[0, 0, :3] = (-3.0, -0.5, 0.4)              # deep tails too
+    np.testing.assert_allclose(
+        tq.log_F_probit(t(y), STD).numpy(),
+        np.asarray(jq.log_F_probit(jnp.asarray(y), STD)), rtol=1e-5,
+        atol=1e-6)
+    np.testing.assert_allclose(tq.F_sigmoid(t(y)).numpy(),
+                               np.asarray(jq.F_sigmoid(jnp.asarray(y))),
+                               rtol=1e-6, atol=1e-7)
+
+
+def test_dither_sigmoid_statistics(rng):
+    """Bernoulli(sigmoid(y)): {0,1}, the share of ones within 4 standard
+    errors of mean sigmoid, and certain where sigmoid saturates."""
+    y = t(rng.normal(0.0, 2.0, (64, 32, 32)).astype(np.float32))
+    y[0, 0, :2] = torch.tensor([-200.0, 200.0])
+    z = tq.dither_sigmoid(y, torch.Generator().manual_seed(0))
+    assert z.dtype == y.dtype and set(z.unique().tolist()) <= {0.0, 1.0}
+    assert z[0, 0, :2].tolist() == [0.0, 1.0]
+    p = torch.sigmoid(y)
+    se = torch.sqrt((p * (1 - p)).sum()) / p.numel()
+    assert abs(z.mean() - p.mean()) < 4 * se
+
+
+@pytest.mark.parametrize("last", [8, 13, 51])
+def test_pack_and_unpack_bits_match(rng, last):
+    y01 = rng.integers(0, 2, (3, 4, last)).astype(np.float32)
+    packed = tq.pack_bits_host(y01)
+    np.testing.assert_array_equal(packed, jq.pack_bits_host(y01))
+    got = tq.unpack_bits(t(packed), last)
+    assert got.dtype == torch.float32
+    np.testing.assert_array_equal(
+        got.numpy(), np.asarray(jq.unpack_bits(jnp.asarray(packed), last)))
+    np.testing.assert_array_equal(got.numpy(), y01)
+
+
+def test_map_metrics_match(rng):
+    T_hat = rng.uniform(0.0, 0.1, (K, I, I)).astype(np.float32)
+    T_true = rng.uniform(0.0, 0.1, (K, I, I)).astype(np.float32)
+    x_hat = rng.uniform(0.0, 1.0, (R, K)).astype(np.float32)
+    x_true = rng.uniform(0.0, 1.0, (R, K)).astype(np.float32)
+    cases = [
+        (tmet.nmse_log(t(T_hat), t(T_true), 1e-10),
+         jmet.nmse_log(jnp.asarray(T_hat), jnp.asarray(T_true), 1e-10)),
+        (tmet.sre(t(T_hat), t(T_true)),
+         jmet.sre(jnp.asarray(T_hat), jnp.asarray(T_true))),
+        (tmet.nae(t(x_hat), t(x_true)),
+         jmet.nae(jnp.asarray(x_hat), jnp.asarray(x_true))),
+        (tmet.nae_tensor(t(T_hat), t(T_true), R),
+         jmet.nae_tensor(jnp.asarray(T_hat), jnp.asarray(T_true), R)),
+    ]
+    for got, ref in cases:
+        np.testing.assert_allclose(got.item(), float(ref), rtol=1e-5)
+
+
+def test_detection_counts_match(rng):
+    """Peaks on and off the grid's edge, bands above and below the low
+    level: all four counts equal the JAX package's."""
+    T_ref = rng.uniform(0.0, 0.03, (K, I, I)).astype(np.float32)
+    T_hat = rng.uniform(0.0, 0.03, (K, I, I)).astype(np.float32)
+    peaks = np.array([[2.4, 7.6], [-1.0, 12.0], [4.5, 3.5]], np.float32)
+    got = tmet.detection_counts(t(T_hat), t(T_ref), t(peaks))
+    ref = jmet.detection_counts(jnp.asarray(T_hat), jnp.asarray(T_ref),
+                                jnp.asarray(peaks))
+    assert [int(x) for x in got] == [int(x) for x in ref]
+    assert int(got[0]) > 0 and int(got[2]) > 0
+
+
+@pytest.mark.parametrize("clamp", [None, 1e5])
+def test_prob_probit_and_log_prob_probit_match(rng, clamp):
+    table = jbnd.QUANTIZATION_BOUNDARIES_4_BINS_LOG
+    Y = rng.integers(0, 4, (K, I, I))
+    X = rng.normal(-8.0, 3.0, (K, I, I)).astype(np.float32)
+    bb = np.array(table, np.float32)
+    for tf, jf in ((tlik.prob_probit, jlik.prob_probit),
+                   (tlik.log_prob_probit, jlik.log_prob_probit)):
+        got = tf(t(Y), t(X), table, 5.0, clamp).numpy()
+        ref = np.asarray(jf(jnp.asarray(Y), jnp.asarray(X), jnp.asarray(bb),
+                            5.0, clamp))
+        np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-6)
+
+
+def test_deterministic_cost_matches(problem):
+    S, C, y01, _ = problem
+    T_hat = np.einsum("brij,brk->bkij", S, C)
+    got = tlik.deterministic_cost(t(T_hat), t(y01), MEAN, 0.01)
+    assert got.shape == (B,)
+    for b in range(B):
+        ref = jlik.deterministic_cost(jnp.asarray(T_hat[b]),
+                                      jnp.asarray(y01[b]), MEAN, 0.01)
+        np.testing.assert_allclose(got[b].item(), float(ref), rtol=1e-5)
+
+
+def test_outer_and_init_factors_match(rng):
+    mat = rng.normal(size=(I, I)).astype(np.float32)
+    vec = rng.normal(size=(K,)).astype(np.float32)
+    np.testing.assert_allclose(
+        tlr.outer(t(mat), t(vec)).numpy(),
+        np.asarray(jlr.outer(jnp.asarray(mat), jnp.asarray(vec))),
+        rtol=1e-6, atol=1e-7)
+    for got, ref in zip(tlr.init_factors(R, I, I, K),
+                        jlr.init_factors(R, I, I, K)):
+        assert tuple(got.shape) == ref.shape and got.dtype == torch.float32
+        assert not got.any()
+
+
+@pytest.mark.parametrize("num_bins", [4, 8])
+def test_find_boundaries_matches(rng, num_bins):
+    """Equal-count bins of log-map samples, with a block of repeated values
+    that forces the strictly-increasing fix-up."""
+    samples = rng.normal(-8.0, 2.0, 4000).astype(np.float32)
+    samples[:1500] = -23.0
+    got, sd = tbnd.find_boundaries(t(samples), num_bins)
+    ref, rsd = jbnd.find_boundaries(jnp.asarray(samples), num_bins)
+    np.testing.assert_array_equal(got, ref)
+    assert sd == rsd and np.all(np.diff(got) > 0)
+
+
+def test_fit_log_offset_matches():
+    raw = jbnd.QUANTIZATION_BOUNDARIES_8_BINS_SAMPLE[1:]
+    f, b, logs = tbnd.fit_log_offset(raw)
+    rf, rb, rlogs = jbnd.fit_log_offset(raw)
+    assert (f, b) == (rf, rb)
+    assert logs.dtype == torch.float32
+    np.testing.assert_array_equal(logs.numpy(), np.asarray(rlogs))

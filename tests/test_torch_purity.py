@@ -9,7 +9,7 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "quantized_spectrum_cartography_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax",
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "tensorstore",
              "quantized_spectrum_cartography_tpu", "tests")
 SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
 

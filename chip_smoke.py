@@ -69,11 +69,28 @@ Phases, each printing one line with its seconds:
                (final costs, rtol 1e-3; the final Z's difference printed);
                then `recover --solver dowjons` at its defaults: finite,
                falling costs and C >= 0
-  9. main_lowrank_ordinal - recover_lowrank_mle at B=256 on obs_encoding
+  9. harness - the five published methods (tps, btd, deepcomp, nasdac,
+               dowjons) from load_pretrained_methods at the registry's
+               defaults (checkpoints/ae_completion/final and
+               checkpoints/vae_peak_z256) through BatchedHarness at the base
+               condition (f=0.05, R=2, sigma 5, Xc 50, noiseless), 32
+               examples at full width (51x51x64): each method's seconds,
+               SRE mean / median / valid count, miss and false-alarm
+               probabilities; every T_hat must be finite, every method
+               present, and each method's mean SRE at most the JAX
+               package's 256-example mean + 4 sd / sqrt(32) (both from
+               PUBLISHED_SRE.json's sre_sorted, BTD's on its SRE < 3
+               entries); none of the six kernels launches.  Then examples
+               0 and 1 again on the CPU through the same code, with the
+               card's random starts: tps, deepcomp and nasdac within
+               relative Frobenius 1e-3 of the card's T_hat (a differing
+               SPA column or witness peak is printed), btd's and dowjons'
+               SRE differences printed
+  10. main_lowrank_ordinal - recover_lowrank_mle at B=256 on obs_encoding
                "codes" and "bounds", cut from 50 to 10 outer iterations to
                keep the plain solves short, each against nll_mode="plain"
                (final costs, rtol 1e-3)
-  10. timing - every kernel's and its plain version's ms (CUDA events over
+  11. timing - every kernel's and its plain version's ms (CUDA events over
                back-to-back calls, in turns plain, kernel, kernel, plain),
                the kernel's device time (graph_ms: TIMING_REPS calls captured
                in one CUDA graph, its replays timed with CUDA events, so the
@@ -133,6 +150,10 @@ CHECKPOINTS = {"gan256": "checkpoints/gan256/final",
                "vae_peak_z256": "checkpoints/vae_peak_z256",
                "ae_completion": "checkpoints/ae_completion/final"}
 CLI_ITERS = 100                  # the CLI's --iters default
+HARNESS_METHODS = ("tps", "btd", "deepcomp", "nasdac", "dowjons")
+HARNESS_EXAMPLES, HARNESS_CPU_EXAMPLES = 32, 2
+HARNESS_CPU_RTOL = 1e-3          # relative Frobenius, card against CPU
+HARNESS_EXACT = ("tps", "deepcomp", "nasdac")   # the others: SRE printed
 OUT_DIR = ROOT / "build" / "chip_smoke"
 PRIOR_RTOL, PRIOR_ATOL = 1e-4, 1e-5
 
@@ -681,6 +702,207 @@ def main_vae(card):
     return {k: v for k, v in got.items() if v}
 
 
+def jax_sre_limits():
+    """{method: (JAX's 256-example mean, the gate mean + 4 sd / sqrt(32))}
+    from the committed PUBLISHED_SRE.json (BTD on its SRE < 3 entries)."""
+    import numpy as np
+
+    table = json.loads((ROOT / "PUBLISHED_SRE.json").read_text())["methods"]
+    out = {}
+    for name in HARNESS_METHODS:
+        s = np.asarray(table[name]["sre_sorted"])
+        s = s[s < 3.0] if name == "btd" else s
+        out[name] = (s.mean(), s.mean() + 4 * s.std(ddof=1)
+                     / HARNESS_EXAMPLES ** 0.5)
+    return out
+
+
+def harness_methods(device):
+    """The published five on `device`; btd and dowjons draw their random
+    starts here, from the method's generator, and pass them as `draws`, so
+    that the CPU can rerun an example from the card's starts."""
+    import inspect
+
+    from quantized_spectrum_cartography_tpu_torch.baselines import (
+        load_pretrained_methods, standard_methods)
+    from quantized_spectrum_cartography_tpu_torch.solvers import (
+        load_vae_prior)
+
+    defaults = {k: v.default for k, v in
+                inspect.signature(standard_methods).parameters.items()}
+    z_dim = load_vae_prior(ROOT / CHECKPOINTS["vae_peak_z256"], "cpu")[1]
+    methods = load_pretrained_methods(only=HARNESS_METHODS, device=device)
+
+    def shapes_btd(hp):
+        B, K, I, J = hp.T_obs.shape
+        head = (B, defaults["btd_restarts"], hp.S_true.shape[1])
+        return [(*head, I, 5), (*head, J, 5), (*head, K)]
+
+    def shapes_dowjons(hp):
+        B, R = hp.S_true.shape[:2]
+        return [(B, R, z_dim), (B, defaults["dowjons_restarts"], R, z_dim)]
+
+    draws = {}
+
+    def drawing(name, fn, shapes):
+        def run(generator, hp, starts=None):
+            if starts is None:
+                starts = [torch.randn(*sh, generator=generator,
+                                      device=hp.T_obs.device)
+                          for sh in shapes(hp)]
+                draws[name] = starts
+            return fn(generator, hp, draws=starts)
+        return run
+
+    methods["btd"] = drawing("btd", methods["btd"], shapes_btd)
+    methods["dowjons"] = drawing("dowjons", methods["dowjons"],
+                                 shapes_dowjons)
+    return methods, draws
+
+
+def harness(card):
+    """The published-SRE methods through BatchedHarness on the card, held
+    to the JAX package's 256-example table, then two examples on the CPU."""
+    import numpy as np
+
+    from quantized_spectrum_cartography_tpu_torch.baselines import harness as h
+    from quantized_spectrum_cartography_tpu_torch.ops.kernels import (
+        onebit_nll as k, quantized_nll as q)
+
+    limits = jax_sre_limits()
+    methods, draws = harness_methods(DEVICE)
+    T_hats = {}
+
+    def recording(name, fn):
+        def run(generator, hp):
+            out = fn(generator, hp)
+            T_hats[name] = out["T_hat"]
+            return out
+        return run
+
+    runner = h.BatchedHarness({n: recording(n, f) for n, f in methods.items()},
+                              device=DEVICE)
+    cond = h.Condition()
+    k.reset_launches()
+    q.reset_launches()
+    (label, stats), = runner.run((cond,), HARNESS_EXAMPLES, seed=0).items()
+    launched = {name: getattr(mod, name + "_cuda").launches
+                for mod, names in ((k, ("onebit_nll_fwd", "onebit_nll_bwd")),
+                                   (q, ORDINAL)) for name in names}
+    missing = [n for n in HARNESS_METHODS if n not in stats]
+    if missing:
+        fail(f"harness: methods missing: {missing}")
+    over = []
+    for name in HARNESS_METHODS:
+        st, (jax_mean, limit) = stats[name], limits[name]
+        s = np.asarray(st["sre_all"])
+        valid = s[s < 3.0] if name == "btd" else s
+        finite = bool(torch.isfinite(T_hats[name]).all())
+        print(f"harness {name}: {runner.seconds[label][name]:.3f} s for "
+              f"{HARNESS_EXAMPLES} examples on {card}; SRE mean "
+              f"{st['sre']:.4f} median {np.median(valid):.4f} valid "
+              f"{st['valid']}/{HARNESS_EXAMPLES} (JAX 256-example mean "
+              f"{jax_mean:.4f}, limit {limit:.4f}); miss {st['miss_prob']:.4f}"
+              f", false alarm {st['false_prob']:.4f}; T_hat finite {finite}",
+              flush=True)
+        if not finite:
+            fail(f"harness {name}: non-finite T_hat")
+        if not st["sre"] <= limit:
+            over.append(name)
+    print(f"harness: likelihood kernel launches {launched}", flush=True)
+    if over:
+        fail(f"harness: mean SRE above the JAX limit for {over}")
+    if any(launched.values()):
+        fail("harness: the evaluation launched a likelihood kernel")
+
+    # examples 0 and 1 again, on the CPU, from the card's random starts
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    hp = h.make_problem(gen, cond, batch=HARNESS_EXAMPLES, device=DEVICE)
+    n = HARNESS_CPU_EXAMPLES
+    hp_n = dataclasses.replace(hp, **{
+        f.name: getattr(hp, f.name)[:n]
+        for f in dataclasses.fields(hp) if f.name != "fraction"})
+    hp_cpu = dataclasses.replace(hp_n, **{
+        f.name: getattr(hp_n, f.name).cpu()
+        for f in dataclasses.fields(hp) if f.name != "fraction"})
+    cpu_methods, _ = harness_methods("cpu")
+    cpu_T, differ = {}, []                    # (method, example, rel)
+    for name in HARNESS_METHODS:
+        mhp = (hp_cpu if name in h.SAMPLE_IDX_METHODS
+               else dataclasses.replace(hp_cpu, sample_idx=None))
+        kw = ({"starts": [d[:n].cpu() for d in draws[name]]}
+              if name in draws else {})
+        with torch.no_grad():
+            cpu_T[name] = cpu_methods[name](None, mhp, **kw)["T_hat"]
+        card_T = T_hats[name][:n].cpu()
+        rel = ((card_T - cpu_T[name]).flatten(1).norm(dim=1)
+               / cpu_T[name].flatten(1).norm(dim=1)).tolist()
+        sre = [((x - hp_cpu.T_true).square().sum((1, 2, 3))
+                / hp_cpu.T_true.square().sum((1, 2, 3))).tolist()
+               for x in (card_T, cpu_T[name])]
+        print(f"harness {name} card vs CPU, examples 0-{n - 1}: relative "
+              f"Frobenius {', '.join(f'{r:.2e}' for r in rel)}; SRE card "
+              f"{', '.join(f'{x:.4f}' for x in sre[0])}, CPU "
+              f"{', '.join(f'{x:.4f}' for x in sre[1])}", flush=True)
+        for b in range(n):
+            if name in HARNESS_EXACT and not rel[b] <= HARNESS_CPU_RTOL:
+                differ.append((name, b, rel[b]))
+    if any(name == "nasdac" for name, _, _ in differ):
+        # Nasdac's SPA picks among bands whose normalized columns tie up to
+        # rounding (sinc PSDs vanish outside their support, so whole bands
+        # are pure): the card and the CPU may pick differently, and so may
+        # the swap flag that follows.  Such an example is printed, not
+        # failed; one with every choice the same must agree.
+        choices = [nasdac_choices(hp_n, DEVICE), nasdac_choices(hp_cpu, "cpu")]
+        for name, b, r in [d for d in differ if d[0] == "nasdac"]:
+            diff = {k: (choices[0][k][b], choices[1][k][b])
+                    for k in choices[0] if choices[0][k][b] != choices[1][k][b]}
+            print(f"harness nasdac example {b} differs by {r:.2e}; discrete "
+                  f"choices that differ (card, CPU): {diff or 'none'}",
+                  flush=True)
+            if diff:
+                differ.remove((name, b, r))
+    if differ:
+        fail(f"harness: the card's T_hat differs from the CPU's by more "
+             f"than {HARNESS_CPU_RTOL}: {differ}")
+
+
+def nasdac_choices(hp, device):
+    """Nasdac's discrete choices on examples hp (on `device`), as the
+    registry's nasdac makes them: SPA's columns of the sampled unfolding,
+    the witness peaks of the per-band completion and the swap flag
+    between the plain and the anchored solve."""
+    import inspect
+
+    from quantized_spectrum_cartography_tpu_torch.baselines import (
+        standard_methods)
+    from quantized_spectrum_cartography_tpu_torch.baselines.spa import (
+        column_sum_normalize, spa_indices)
+    from quantized_spectrum_cartography_tpu_torch.solvers.nasdac import (
+        recover_nasdac, witness_peaks, witnessed_swap_flag)
+    from quantized_spectrum_cartography_tpu_torch.training.ae_trainer import (
+        load_ae, make_ae_completer)
+
+    d = {k: v.default for k, v in
+         inspect.signature(standard_methods).parameters.items()}
+    ae = make_ae_completer(*load_ae(ROOT / CHECKPOINTS["ae_completion"],
+                                    "selu", device))
+    R, W, T_obs = hp.S_true.shape[1], hp.Om.to(torch.float32), hp.T_obs
+    with torch.no_grad():
+        Tn, _ = column_sum_normalize(T_obs.flatten(-2).transpose(-1, -2))
+        T_comp = ae(W[:, None], T_obs)
+        plain = recover_nasdac(T_obs, hp.Om, ae, R, anchor_mu0=0.0)
+        anch = recover_nasdac(
+            T_obs, hp.Om, ae, R, anchor_mu0=d["anchor_mu0"], anchor_rho0=1.0,
+            polish_ridge=d["polish_ridge"], polish_gamma=d["polish_gamma"],
+            polish_peaks_extra=d["polish_peaks_extra"], T_comp=T_comp)
+        flag = witnessed_swap_flag(plain.T_hat, anch.T_hat, T_comp, T_obs, W,
+                                   R + 2)
+    return {"SPA columns": spa_indices(Tn, R).tolist(),
+            "witness peaks": witness_peaks(T_comp, R + 2).tolist(),
+            "swap flag": flag.tolist()}
+
+
 def main_lowrank_ordinal(T_obs):
     """recover_lowrank_mle at B=256 on the ordinal encodings (depth cut)."""
     from quantized_spectrum_cartography_tpu_torch.config import SolverConfig
@@ -892,6 +1114,7 @@ def main():
                                      lambda: main_gan(card, trees))
     launches.update(launches_gan)
     launches_vae = phase("main_vae", lambda: main_vae(card))
+    phase("harness", lambda: harness(card))
     launches_lr, inputs_lr = phase("main_lowrank_ordinal",
                                    lambda: main_lowrank_ordinal(T_obs))
     ms, bounds, ms_lr, bounds_lr = phase(

@@ -1,6 +1,7 @@
-"""Command-line interface of the port: ``simulate`` and ``recover --solver
-lowrank|mle-gan|dowjons``, with the JAX package's flags and one-line JSON
-output.
+"""Command-line interface of the port: ``simulate``, ``recover --solver
+lowrank|mle-gan|dowjons`` (one-line JSON output), ``sweep`` and
+``conditions`` (the evaluation harness, JSON results), with the JAX
+package's flags.
 
     python -m quantized_spectrum_cartography_tpu_torch.cli simulate --out maps.npz
     python -m quantized_spectrum_cartography_tpu_torch.cli recover --solver lowrank
@@ -8,6 +9,10 @@ output.
     python -m quantized_spectrum_cartography_tpu_torch.cli recover \
         --solver dowjons --prior-kind gan --prior-checkpoint checkpoints/gan256/final
     python -m quantized_spectrum_cartography_tpu_torch.cli recover --config run.ini
+    python -m quantized_spectrum_cartography_tpu_torch.cli sweep --fractions 0.05 0.1
+    python -m quantized_spectrum_cartography_tpu_torch.cli conditions \
+        --ae-checkpoint checkpoints/ae_completion/final \
+        --vae-checkpoint checkpoints/vae_peak_z256 [--axis fraction]
 
 All run on the GPU unless ``--device cpu`` is given.  The deep prior of
 mle-gan and dowjons is the VAE of ``checkpoints/vae_best/final`` (in this
@@ -198,6 +203,73 @@ def _cmd_recover(args):
                  C_true=prob.C_true.cpu().numpy())
 
 
+def _cmd_sweep(args):
+    """TPS and SPA-NMF over a fraction sweep (JAX ``cli.py:_cmd_sweep``)."""
+    from quantized_spectrum_cartography_tpu_torch.baselines import (
+        nmf_spa, run_sweep, tps_complete)
+
+    def tps_method(generator, prob, f):
+        T_obs = prob.T_true * prob.Om[None].to(prob.T_true.dtype)
+        return {"T_hat": tps_complete(T_obs, prob.Om,
+                                      torch.argwhere(prob.Om))}
+
+    def spa_method(generator, prob, f):
+        K, I, J = prob.T_true.shape
+        C_hat, S_flat = nmf_spa(prob.T_true.reshape(K, -1),
+                                prob.S_true.shape[0])
+        S_hat = S_flat.reshape(-1, I, J)
+        return {"T_hat": torch.einsum("rij,rk->kij", S_hat, C_hat),
+                "S_hat": S_hat, "C_hat": C_hat}
+
+    results = run_sweep({"tps": tps_method, "nmf_spa": spa_method},
+                        fractions=args.fractions,
+                        num_examples=args.examples, device=args.device)
+    print(json.dumps(results, indent=2))
+
+
+def _cmd_conditions(args):
+    """The joint_opt_ae.m protocol: the condition grid over one axis, the
+    reference metrics, the registered methods (JAX
+    ``cli.py:_cmd_conditions``); the deep methods come with checkpoints."""
+    from quantized_spectrum_cartography_tpu_torch.baselines import (
+        condition_grid, run_conditions, standard_methods)
+
+    kwargs = {}
+    if args.ae_checkpoint:
+        from quantized_spectrum_cartography_tpu_torch.training.ae_trainer import (
+            load_ae, make_ae_completer, make_ae_input_fn, make_ae_latent_fns)
+
+        # the activation is an architecture choice the checkpoint does not
+        # store; a wrong one loads silently and degrades completions
+        ae, scale = load_ae(args.ae_checkpoint, args.ae_activation,
+                            args.device)
+        kwargs["ae_complete"] = make_ae_completer(ae, scale)
+        kwargs["ae_input_apply"] = make_ae_input_fn(ae, scale)
+        kwargs["ae_latent_fns"] = make_ae_latent_fns(ae, scale)
+    if args.vae_checkpoint:
+        from quantized_spectrum_cartography_tpu_torch.solvers import (
+            load_vae_prior)
+
+        gen, z_dim, _ = load_vae_prior(args.vae_checkpoint,
+                                       device=args.device)
+        kwargs["gen_apply"], kwargs["z_dim"] = gen, z_dim
+
+    methods = standard_methods(**kwargs)
+    if args.methods:
+        missing = [m for m in args.methods if m not in methods]
+        if missing:
+            raise SystemExit(
+                f"methods {missing} unavailable (registered: "
+                f"{sorted(methods)}; deep methods need --ae-checkpoint / "
+                f"--vae-checkpoint)")
+        methods = {m: methods[m] for m in args.methods}
+    out = run_conditions(methods, condition_grid(args.axis),
+                         num_examples=args.examples, seed=args.seed,
+                         log_fn=print if args.verbose else None,
+                         device=args.device)
+    print(json.dumps(out, indent=2))
+
+
 def _parser():
     p = argparse.ArgumentParser(prog="qsc-torch")
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -230,6 +302,34 @@ def _parser():
                          "[solver] sections); overrides the flag defaults")
     pr.add_argument("--device", default="cuda")
     pr.set_defaults(fn=_cmd_recover)
+
+    pw = sub.add_parser("sweep", help="baseline evaluation sweep")
+    pw.add_argument("--fractions", type=float, nargs="+", default=[0.05, 0.1])
+    pw.add_argument("--examples", type=int, default=3)
+    pw.add_argument("--device", default="cuda")
+    pw.set_defaults(fn=_cmd_sweep)
+
+    pc = sub.add_parser(
+        "conditions", help="full joint_opt_ae.m condition-grid protocol")
+    pc.add_argument("--axis", default=None,
+                    choices=[None, "fraction", "num_emitters",
+                             "shadow_sigma", "xc", "snr"],
+                    help="reference sweep axis (default: base condition only)")
+    pc.add_argument("--examples", type=int, default=1)
+    pc.add_argument("--seed", type=int, default=0)
+    pc.add_argument("--methods", nargs="+", default=None,
+                    help="subset of registered methods (default: all)")
+    pc.add_argument("--ae-checkpoint", default=None,
+                    help="completion-AE checkpoint -> deepcomp/nasdac/"
+                         "dowjons_ae/dowjons_ae_latent")
+    pc.add_argument("--ae-activation", default="selu",
+                    help="activation the AE was trained with (not stored "
+                         "in the checkpoint)")
+    pc.add_argument("--vae-checkpoint", default=None,
+                    help="VAE prior checkpoint -> dowjons")
+    pc.add_argument("--verbose", action="store_true")
+    pc.add_argument("--device", default="cuda")
+    pc.set_defaults(fn=_cmd_conditions)
     return p
 
 

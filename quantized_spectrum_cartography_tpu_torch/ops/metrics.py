@@ -29,9 +29,13 @@ def nmse_log(T: torch.Tensor, T_target: torch.Tensor,
     return _fro(Tl - Tt) / _fro(Tt)
 
 
-def sre(X_hat: torch.Tensor, X_true: torch.Tensor) -> torch.Tensor:
-    """Squared reconstruction error ||X - X*||_F^2 / ||X*||_F^2."""
-    return (X_hat - X_true).square().sum() / X_true.square().sum()
+def sre(X_hat: torch.Tensor, X_true: torch.Tensor, dim=None) -> torch.Tensor:
+    """Squared reconstruction error ||X - X*||_F^2 / ||X*||_F^2 over `dim`
+    (all axes if None)."""
+    def sq(x):
+        return x.square().sum() if dim is None else x.square().sum(dim=dim)
+
+    return sq(X_hat - X_true) / sq(X_true)
 
 
 def _l1_normalized(x: torch.Tensor) -> torch.Tensor:
@@ -59,16 +63,25 @@ def detection_counts(
     low_level: float = 0.01,
 ):
     """(misses, peak events, false detections, low events) at the true
-    emitter locations, over every band: at peak (x, y) [R, 2] (x a column),
-    ref = T_ref[k, y, x]; ref > low_level is a peak event, missed if
-    T_hat < miss_threshold * ref; otherwise a low event, falsely detected
-    if T_hat > max(low_level, misdetect_threshold * ref)."""
-    px = peaks_xy[:, 0].round().long().clamp(0, T_ref.shape[2] - 1)
-    py = peaks_xy[:, 1].round().long().clamp(0, T_ref.shape[1] - 1)
-    ref_vals = T_ref[:, py, px]                       # [K, R]
-    hat_vals = T_hat[:, py, px]
+    emitter locations, over every band: at peak (x, y) [..., R, 2] (x a
+    column), ref = T_ref[..., k, y, x]; ref > low_level is a peak event,
+    missed if T_hat < miss_threshold * ref; otherwise a low event, falsely
+    detected if T_hat > max(low_level, misdetect_threshold * ref).  Leading
+    axes are batch axes: one count of each per map [...]."""
+    K, I, J = T_ref.shape[-3:]
+    px = peaks_xy[..., 0].round().long().clamp(0, J - 1)
+    py = peaks_xy[..., 1].round().long().clamp(0, I - 1)
+    idx = (py * J + px)[..., None, :].expand(*T_ref.shape[:-2],
+                                             peaks_xy.shape[-2])
+
+    def at(T):                                        # [..., K, R]
+        return torch.gather(T.flatten(-2), -1, idx)
+
+    ref_vals, hat_vals = at(T_ref), at(T_hat)
     is_peak = ref_vals > low_level
     miss = is_peak & (hat_vals < miss_threshold * ref_vals)
     misdetect = ~is_peak & (
         hat_vals > torch.clamp(misdetect_threshold * ref_vals, min=low_level))
-    return (miss.sum(), is_peak.sum(), misdetect.sum(), (~is_peak).sum())
+    dims = (-2, -1)
+    return (miss.sum(dims), is_peak.sum(dims), misdetect.sum(dims),
+            (~is_peak).sum(dims))

@@ -1,13 +1,18 @@
 """Where the time of one solve goes on the GPU.
 
     python -m quantized_spectrum_cartography_tpu_torch.profile_solve \
-        [--solver lowrank|mle-gan] [--batch 256] [--trace trace.json]
+        [--solver lowrank|mle-gan|harness] [--method dowjons] [--batch N]
+        [--trace trace.json]
 
 --solver lowrank (default): the bench protocol of ``chip_smoke.py`` (B
 51x51x64 maps, R=2, 50 outer x (5 S + 5 C) Adam steps, rank-10 projection
 every 5).  --solver mle-gan: ``chip_smoke.py``'s MLE-GAN problem, one map
 realizable by a seeded Generator256, 4-bin log quantizer, sigma 5, 10% of
 the entries observed, SolverConfig() defaults, f32 bin bounds.
+--solver harness: one of the published methods (``--method``, default
+dowjons) of ``baselines.load_pretrained_methods`` on a batch of base-condition
+examples (f=0.05, R=2, 51x51x64; ``--batch``, default 32), as
+``chip_smoke.py``'s harness phase runs it.
 Runs the solve once to warm up, once timed, then once under
 ``torch.profiler``.  Prints one JSON line: the card, the wall seconds of the
 timed solve (and of the profiled one, which the profiler slows on the host),
@@ -81,12 +86,38 @@ def mle_gan_solve():
         generator=torch.Generator(device="cuda").manual_seed(3))
 
 
+def harness_solve(batch, method):
+    """One published method on `batch` base-condition examples."""
+    import dataclasses
+
+    from quantized_spectrum_cartography_tpu_torch.baselines import (
+        Condition, load_pretrained_methods, make_problem)
+    from quantized_spectrum_cartography_tpu_torch.baselines.harness import (
+        SAMPLE_IDX_METHODS)
+
+    fn = load_pretrained_methods(only=(method,), device="cuda")[method]
+    hp = make_problem(torch.Generator(device="cuda").manual_seed(0),
+                      Condition(), batch=batch, device="cuda")
+    if method not in SAMPLE_IDX_METHODS:
+        hp = dataclasses.replace(hp, sample_idx=None)
+
+    def run():
+        with torch.no_grad():
+            return fn(torch.Generator(device="cuda").manual_seed(1), hp)
+
+    return run
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--solver", choices=["lowrank", "mle-gan"],
+    ap.add_argument("--solver", choices=["lowrank", "mle-gan", "harness"],
                     default="lowrank")
-    ap.add_argument("--batch", type=int, default=256,
-                    help="maps per low-rank solve")
+    ap.add_argument("--method", default="dowjons",
+                    choices=["tps", "btd", "deepcomp", "nasdac", "dowjons"],
+                    help="the harness method to profile")
+    ap.add_argument("--batch", type=int, default=None,
+                    help="maps per low-rank solve (256) or harness "
+                         "examples (32)")
     ap.add_argument("--top", type=int, default=12)
     ap.add_argument("--trace", default=None,
                     help="write a chrome trace of the profiled solve here")
@@ -94,9 +125,15 @@ def main(argv=None):
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
     torch.backends.cudnn.allow_tf32 = False
-    maps = args.batch if args.solver == "lowrank" else 1
-    run = (lowrank_solve(args.batch) if args.solver == "lowrank"
-           else mle_gan_solve())
+    torch.backends.cuda.matmul.allow_tf32 = False
+    if args.solver == "mle-gan":
+        maps, run = 1, mle_gan_solve()
+    elif args.solver == "lowrank":
+        maps = args.batch or 256
+        run = lowrank_solve(maps)
+    else:
+        maps = args.batch or 32
+        run = harness_solve(maps, args.method)
 
     def solve():
         res = run()
@@ -123,7 +160,8 @@ def main(argv=None):
                   key=lambda a: a.self_cpu_time_total, reverse=True)
     print(json.dumps({
         "card": torch.cuda.get_device_name(0),
-        "solver": args.solver,
+        "solver": (args.solver if args.solver != "harness"
+                   else f"harness {args.method}"),
         "batch": maps,
         "wall_s": wall_s,
         "maps_per_s": maps / wall_s,

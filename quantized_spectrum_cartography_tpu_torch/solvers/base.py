@@ -94,3 +94,13 @@ def inner_steps(
     if cost is None:
         cost = torch.zeros(param.shape[:batch_dims], device=param.device)
     return param, opt_state, cost
+
+
+def gather_winner(x: torch.Tensor, best: torch.Tensor) -> torch.Tensor:
+    """x[..., best, ...]: the candidate `best` [...] of each problem, from
+    the candidates' axis right after best's axes (restart winners chosen
+    on the device, no host round trip)."""
+    nb = best.ndim
+    idx = best.reshape(*best.shape, *(1,) * (x.ndim - nb))
+    return torch.gather(x, nb, idx.expand(*best.shape, 1, *x.shape[nb + 1:])
+                        ).squeeze(nb)

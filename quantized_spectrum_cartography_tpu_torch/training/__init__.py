@@ -8,3 +8,7 @@ from quantized_spectrum_cartography_tpu_torch.training.checkpoints import (  # n
     load_npz_tree,
     state_dict_from_flax,
 )
+from quantized_spectrum_cartography_tpu_torch.training.ae_trainer import (  # noqa: F401
+    load_ae,
+    make_ae_completer,
+)

@@ -90,7 +90,29 @@ Phases, each printing one line with its seconds:
                "codes" and "bounds", cut from 50 to 10 outer iterations to
                keep the plain solves short, each against nll_mode="plain"
                (final costs, rtol 1e-3)
-  11. timing - every kernel's and its plain version's ms (CUDA events over
+  11. train  - prior training at the JAX configurations' full widths (GAN:
+               Generator256, z 256, against the SN discriminator; AE: the
+               selu Autoencoder; VAE: latent 64, decoder width 16; AAE:
+               z 64; batch 64 each):
+               (a) for each kind, three steps on the card and three on the
+                   CPU from the same initial weights on the same draws:
+                   losses, weights, BatchNorm statistics and spectral
+                   vectors at the CPU tests' tolerances
+                   (tests/test_torch_train_support.py);
+               (b) `cli train-prior --kind K` in a fresh process, cut from
+                   the CLI's 20000 steps to TRAIN_STEPS (nothing else cut):
+                   exit 0, finite logged losses, the AE's MSE and the VAE's
+                   reconstruction term falling (the mean of the last three
+                   logs below the first three); seconds, and the steady
+                   steps/s between the first and the last log;
+               (c) `recover --solver mle-gan` on the GAN and the VAE
+                   checkpoints (b) wrote: finite cost and NMSE, the bounds
+                   pair launched 2*100+2 / 2*100 times;
+               (d) `recover --solver mle-gan` at the CLI's defaults in a
+                   fresh process, its final cost within rtol 1e-3 of
+                   main_vae's in-process run: the CLI sets the card's
+                   numerics itself
+  12. timing - every kernel's and its plain version's ms (CUDA events over
                back-to-back calls, in turns plain, kernel, kernel, plain),
                the kernel's device time (graph_ms: TIMING_REPS calls captured
                in one CUDA graph, its replays timed with CUDA events, so the
@@ -98,7 +120,8 @@ Phases, each printing one line with its seconds:
                at the bench shapes, the ordinal kernels at the MLE-GAN shape
                (B=1) and at the low-rank shape (B=256)
 
-cuDNN runs without TF32 and with deterministic algorithms, so the solve
+cuDNN runs without TF32 and with deterministic algorithms
+(config.set_card_numerics, which the CLI sets too), so the solve
 comparisons measure the likelihood kernels, not convolution atomics.
 The line before the last two is the kernels' JSON record; then nvidia-smi's
 "name, power.limit"; the last line is {"ok": true, "device": {...}}.  Any
@@ -156,6 +179,15 @@ HARNESS_CPU_RTOL = 1e-3          # relative Frobenius, card against CPU
 HARNESS_EXACT = ("tps", "deepcomp", "nasdac")   # the others: SRE printed
 OUT_DIR = ROOT / "build" / "chip_smoke"
 PRIOR_RTOL, PRIOR_ATOL = 1e-4, 1e-5
+TRAIN_KINDS = ("gan", "ae", "vae", "aae")
+CLI = (sys.executable, "-m", "quantized_spectrum_cartography_tpu_torch.cli")
+TRAIN_STEPS, TRAIN_LOG_EVERY, TRAIN_PARITY_STEPS = 300, 30, 3
+# the CPU tests' tolerances (tests/test_torch_train_support.py): losses on
+# the initial weights, later losses, weights in units of lr (every entry;
+# the median and nine in ten), running statistics
+FIRST_RTOL, LOSS_RTOL = 1e-5, 5e-3
+W_ATOL_LR, W_MEDIAN_LR, W_P90_LR = 7.0, 0.1, 0.5
+STATS_RTOL, STATS_ATOL = 5e-2, 5e-3
 
 _T0 = time.monotonic()
 
@@ -699,7 +731,7 @@ def main_vae(card):
             and costs[-1] < costs[0] and (res["C"] >= 0).all()):
         fail("recover --solver dowjons: costs not finite and falling, "
              "or C < 0")
-    return {k: v for k, v in got.items() if v}
+    return {k: v for k, v in got.items() if v}, printed["final_cost"]
 
 
 def jax_sre_limits():
@@ -945,6 +977,270 @@ def main_lowrank_ordinal(T_obs):
               q.onebit_bounds(MEAN), STD, 0.0, True, q._fast_ok(STD))
     return launches, inputs
 
+def initial_state(kind):
+    """{module: state_dict} of `kind` as its trainer initializes it, from
+    CPU seed 0."""
+    from quantized_spectrum_cartography_tpu_torch.models.layers import (
+        flax_init_)
+    from quantized_spectrum_cartography_tpu_torch.training import (
+        aae_trainer as aae, ae_trainer as ae, gan_trainer as gan,
+        vae_trainer as vae)
+
+    gen = torch.Generator().manual_seed(0)
+    if kind == "gan":
+        g, d, _, _ = gan.init_gan(gen, gan.GANTrainConfig())
+        modules = {"g": g, "d": d}
+    elif kind == "aae":
+        enc, dec, dz, _ = aae.init_aae(gen, aae.AAETrainConfig())
+        modules = {"enc": enc, "dec": dec, "dz": dz}
+    else:
+        model = (ae.Autoencoder() if kind == "ae"
+                 else vae.vae_model(vae.VAETrainConfig()))
+        modules = {kind: flax_init_(model, gen)}
+    return {k: m.state_dict() for k, m in modules.items()}
+
+
+def train_models(kind, device, state):
+    """(modules, run, config) of `kind` at full width on `device` from the
+    weights `state` ({module: state_dict}); run(draws) takes one step's
+    draws (the GAN, the AAE) or all steps' (the AE, the VAE: one trainer
+    run, one Adam) and returns each step's losses."""
+    from quantized_spectrum_cartography_tpu_torch.config import PhysicsConfig
+    from quantized_spectrum_cartography_tpu_torch.data.datasets import (
+        make_slf_sampler)
+    from quantized_spectrum_cartography_tpu_torch.training import (
+        aae_trainer as aae, ae_trainer as ae, gan_trainer as gan,
+        vae_trainer as vae)
+
+    physics = PhysicsConfig()
+    if kind == "gan":
+        cfg = gan.GANTrainConfig()
+        g, d = gan.make_generator(cfg.z_dim), gan.Discriminator(
+            spectral_norm=True)
+        modules = {"g": g, "d": d}
+    elif kind == "aae":
+        cfg = aae.AAETrainConfig()
+        modules = {"enc": aae.AAEEncoder(cfg.z_dim),
+                   "dec": aae.AAEDecoder(cfg.z_dim),
+                   "dz": aae.LatentDiscriminator(cfg.z_dim)}
+    elif kind == "ae":
+        cfg = ae.AETrainConfig()
+        modules = {"ae": ae.Autoencoder(activation=cfg.activation)}
+    else:
+        cfg = vae.VAETrainConfig()
+        modules = {"vae": vae.vae_model(cfg)}
+    for k, m in modules.items():
+        m.load_state_dict(state[k])
+        m.to(device).train()
+    sampler = make_slf_sampler(physics, device)
+    if kind == "gan":
+        step = gan.make_train_step(
+            g, d, gan.adam(g.parameters(), cfg.lr_g, cfg.beta1),
+            gan.adam(d.parameters(), cfg.lr_d, cfg.beta1), cfg, sampler)
+
+        def run(draws):
+            m = step(draws=draws)
+            return [m["d_loss"].item(), m["g_loss"].item()]
+    elif kind == "aae":
+        step = aae.make_aae_step(
+            *modules.values(), aae.aae_optimizers(*modules.values(), cfg),
+            cfg, physics)
+
+        def run(draws):
+            m = step(draws=draws)
+            return [m[k].item() for k in ("recon", "dz", "gen")]
+    else:
+        # the trainer itself, all steps in one run (one Adam)
+        trainer = ae.train_ae if kind == "ae" else vae.train_vae
+        model = modules[kind]
+
+        def run(all_draws):
+            _, info = trainer(None, dataclasses.replace(
+                cfg, steps=len(all_draws)), physics, log_every=1,
+                draws=all_draws, model=model, log_fn=lambda *a: None)
+            model.train()
+            return [list(m[1:]) for m in info["metrics"]]
+    return modules, run, cfg
+
+
+def train_draws(kind, steps):
+    """`steps` steps' draws of `kind` at full width, on the CPU."""
+    from quantized_spectrum_cartography_tpu_torch.data.datasets import (
+        draw_mask, draw_slf)
+    from quantized_spectrum_cartography_tpu_torch.training import (
+        aae_trainer as aae, ae_trainer as ae, gan_trainer as gan,
+        vae_trainer as vae)
+
+    gen = torch.Generator().manual_seed(1)
+    B, I = 64, GRID
+    out = []
+    for _ in range(steps):
+        slf = draw_slf(gen, B)
+        if kind == "gan":
+            out.append(gan.GANDraws(slf, torch.randn(B, 256, generator=gen),
+                                    torch.randn(B, 256, generator=gen)))
+        elif kind == "aae":
+            out.append(aae.AAEDraws(slf, torch.randn(B, 64, generator=gen)))
+        else:
+            mask = draw_mask(gen, torch.zeros(B, I, I))
+            out.append(ae.AEDraws(slf, mask) if kind == "ae" else
+                       vae.VAEDraws(slf, mask,
+                                    torch.randn(B, 64, generator=gen)))
+    return out
+
+
+def _to(x, device):
+    if isinstance(x, torch.Tensor):
+        return x.to(device)
+    return type(x)(*(_to(v, device) for v in x))
+
+
+def flat_state(modules):
+    """{module/flax path: array} of the modules' flax trees (weights,
+    running statistics, spectral vectors)."""
+    from quantized_spectrum_cartography_tpu_torch.training.checkpoints import (
+        flax_from_state_dict)
+
+    out = {}
+    for name, m in modules.items():
+        for path, a in _leaves(flax_from_state_dict(m.state_dict())):
+            out["/".join((name,) + path)] = a
+    return out
+
+
+def train_parity(kind):
+    """TRAIN_PARITY_STEPS steps of `kind` on the card and on the CPU from
+    the same weights and draws; the largest differences found."""
+    import numpy as np
+
+    draws = train_draws(kind, TRAIN_PARITY_STEPS)
+    state = initial_state(kind)
+    card, run_card, cfg = train_models(kind, DEVICE, state)
+    cpu, run_cpu, _ = train_models(kind, "cpu", state)
+    if kind in ("gan", "aae"):
+        got = [run_card(_to(d, DEVICE)) for d in draws]
+        want = [run_cpu(d) for d in draws]
+    else:
+        got, want = run_card([_to(d, DEVICE) for d in draws]), run_cpu(draws)
+    got, want = np.asarray(got), np.asarray(want)
+    # the learning rate each module's weights move by (the AAE's encoder
+    # twice a step)
+    lr = {"g": getattr(cfg, "lr_g", 0), "d": getattr(cfg, "lr_d", 0),
+          "enc": getattr(cfg, "lr_ae", 0) + getattr(cfg, "lr_adv", 0),
+          "dec": getattr(cfg, "lr_ae", 0), "dz": getattr(cfg, "lr_adv", 0),
+          "ae": getattr(cfg, "lr", 0), "vae": getattr(cfg, "lr", 0)}
+    rel = np.abs(got - want) / np.abs(want)
+    # losses on the initial weights: the D loss, the reconstruction, the
+    # AE's loss and the VAE's three terms of step 1
+    first = rel[0, :3 if kind == "vae" else 1]
+    ok = (first <= FIRST_RTOL).all() and (rel <= LOSS_RTOL).all()
+    a, b = flat_state(card), flat_state(cpu)
+    stats = [k for k in b if k.split("/")[-1] in ("mean", "var", "u")]
+    diffs = np.concatenate([np.abs(a[k] - b[k]).ravel() / lr[k.split("/")[0]]
+                            for k in b if k not in stats])
+    median, p90, top = np.quantile(diffs, [0.5, 0.9, 1.0])
+    stats_ok = all(np.allclose(a[k], b[k], rtol=STATS_RTOL, atol=STATS_ATOL)
+                   for k in stats)
+    ok = ok and top <= W_ATOL_LR and median <= W_MEDIAN_LR and \
+        p90 <= W_P90_LR and stats_ok
+    print(f"train {kind} card vs CPU, {TRAIN_PARITY_STEPS} steps at batch "
+          f"64: losses rel {rel.max():.2e} (first {first.max():.2e}"
+          f"); weights apart in lr units median {median:.3g}, p90 "
+          f"{p90:.3g}, max {top:.3g}; running statistics within "
+          f"rtol {STATS_RTOL} + atol {STATS_ATOL}: {stats_ok}", flush=True)
+    if not ok:
+        fail(f"train {kind}: the card's steps differ from the CPU's")
+
+
+def train_cli(kind, card):
+    """`cli train-prior --kind K` at full width in a fresh process; its
+    summary line (parsed)."""
+    import math
+
+    ckpt = OUT_DIR / "train" / kind
+    cmd = [*CLI, "train-prior", "--kind", kind, "--steps", str(TRAIN_STEPS),
+           "--log-every", str(TRAIN_LOG_EVERY), "--checkpoint-dir",
+           str(ckpt)] + (["--z-dim", "64"] if kind == "aae" else [])
+    t = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=300,
+                          cwd=ROOT)
+    wall = time.perf_counter() - t
+    if proc.returncode != 0:
+        fail(f"train-prior --kind {kind} exited {proc.returncode}: "
+             f"{proc.stderr.strip()[-2000:]}")
+    summary = json.loads(proc.stdout.strip().splitlines()[-1])
+    # "<kind> step <n>: <name> <value> <name> <value> ..."
+    values = [[float(x) for x in line.split(":", 1)[1].split()[1::2]]
+              for line in summary["log"]]
+    finite = all(math.isfinite(v) for row in values for v in row)
+    # the AE's MSE and the VAE's reconstruction term (its second number)
+    col = {"ae": 0, "vae": 1}.get(kind)
+    falls = None
+    if col is not None:
+        series = [row[col] for row in values]
+        falls = sum(series[-3:]) / 3 < sum(series[:3]) / 3
+    print(f"train cli {kind}: {TRAIN_STEPS} steps at batch 64 in "
+          f"{summary['seconds']:.2f} s (process {wall:.2f} s), steady "
+          f"{summary['steps_per_s']:.1f} steps/s on {card}; logs "
+          f"{len(values)}, first "
+          f"{summary['log'][0]!r}, last {summary['log'][-1]!r}; finite "
+          f"{finite}; falling {falls}", flush=True)
+    if not (finite and len(values) >= 6 and falls in (None, True)):
+        fail(f"train-prior --kind {kind}: losses not finite or not falling")
+    return ckpt
+
+
+def train(card, vae_cost):
+    """Prior training on the card: (a) card against CPU, (b) each kind
+    through the CLI, (c) their GAN and VAE priors behind recover, (d) the
+    CLI's own numerics."""
+    import numpy as np
+
+    from quantized_spectrum_cartography_tpu_torch.ops.kernels import (
+        quantized_nll as q)
+
+    for kind in TRAIN_KINDS:
+        train_parity(kind)
+    ckpts = {kind: train_cli(kind, card) for kind in TRAIN_KINDS}
+
+    want = dict.fromkeys(ORDINAL, 0)
+    want.update({"quantized_nll_fwd": 2 * CLI_ITERS + 2,
+                 "quantized_nll_bwd": 2 * CLI_ITERS})
+    launched = {}
+    for kind in ("gan", "vae"):
+        q.reset_launches()
+        line, secs = run_cli(["recover", "--solver", "mle-gan",
+                              "--prior-kind", kind, "--prior-checkpoint",
+                              str(ckpts[kind] / "final")])
+        got = {name: getattr(q, name + "_cuda").launches for name in ORDINAL}
+        printed = json.loads(line)
+        print(f"train recover under the port-trained {kind}: launches {got}; "
+              f"final cost {printed['final_cost']:.2f}, NMSE "
+              f"{printed['final_nmse']:.4f}; {secs:.3f} s on {card}",
+              flush=True)
+        if got != want or not (np.isfinite(printed["final_cost"])
+                               and np.isfinite(printed["final_nmse"])):
+            fail(f"recover under the trained {kind}: launches {got} "
+                 f"(expected {want}) or non-finite {printed}")
+        for name, n in got.items():
+            launched[name] = launched.get(name, 0) + n
+
+    cmd = [*CLI, "recover", "--solver", "mle-gan"]
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=300,
+                          cwd=ROOT)
+    if proc.returncode != 0:
+        fail(f"fresh recover exited {proc.returncode}: "
+             f"{proc.stderr.strip()[-2000:]}")
+    fresh = json.loads(proc.stdout.strip().splitlines()[-1])["final_cost"]
+    rel = abs(fresh - vae_cost) / abs(vae_cost)
+    print(f"train numerics: recover --solver mle-gan in a fresh process "
+          f"final cost {fresh:.4f}, in this process {vae_cost:.4f}, rel "
+          f"{rel:.2e}", flush=True)
+    if not rel <= COST_RTOL:
+        fail("the CLI in a fresh process computes another cost than the "
+             "in-process run: its numerics are not the card's")
+    return {k: v for k, v in launched.items() if v}
+
 
 def event_ms(fn):
     for _ in range(3):
@@ -1099,10 +1395,10 @@ def timing(inputs_1bit, inputs_gan, inputs_lowrank):
 def main():
     if not torch.cuda.is_available():
         fail("no CUDA device: this smoke test runs on the GPU only")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cudnn.deterministic = True
-    torch.backends.cudnn.benchmark = False
+    from quantized_spectrum_cartography_tpu_torch.config import (
+        set_card_numerics)
+
+    set_card_numerics()
     smi = phase("device", device_info)
     card = torch.cuda.get_device_name(0)
     phase("build", build)
@@ -1113,10 +1409,11 @@ def main():
     launches_gan, inputs_gan = phase("main_gan",
                                      lambda: main_gan(card, trees))
     launches.update(launches_gan)
-    launches_vae = phase("main_vae", lambda: main_vae(card))
+    launches_vae, vae_cost = phase("main_vae", lambda: main_vae(card))
     phase("harness", lambda: harness(card))
     launches_lr, inputs_lr = phase("main_lowrank_ordinal",
                                    lambda: main_lowrank_ordinal(T_obs))
+    launches_train = phase("train", lambda: train(card, vae_cost))
     ms, bounds, ms_lr, bounds_lr = phase(
         "timing", lambda: timing(inputs_1bit, inputs_gan, inputs_lr))
 
@@ -1130,6 +1427,7 @@ def main():
             "plain_ms": ms[name][1], "bound_ms": bounds[name][0],
             "bound_by": bounds[name][1], "library_ms": None,
             "main_vae_launches": launches_vae.get(name, 0),
+            "train_recover_launches": launches_train.get(name, 0),
         }
         if name in ORDINAL:
             rec["lowrank_b256"] = {

@@ -1,7 +1,7 @@
 """Command-line interface of the port: ``simulate``, ``recover --solver
-lowrank|mle-gan|dowjons`` (one-line JSON output), ``sweep`` and
-``conditions`` (the evaluation harness, JSON results), with the JAX
-package's flags.
+lowrank|mle-gan|dowjons`` (one-line JSON output), ``train-prior --kind
+gan|ae|vae|aae``, ``sweep`` and ``conditions`` (the evaluation harness, JSON
+results), with the JAX package's flags.
 
     python -m quantized_spectrum_cartography_tpu_torch.cli simulate --out maps.npz
     python -m quantized_spectrum_cartography_tpu_torch.cli recover --solver lowrank
@@ -9,19 +9,26 @@ package's flags.
     python -m quantized_spectrum_cartography_tpu_torch.cli recover \
         --solver dowjons --prior-kind gan --prior-checkpoint checkpoints/gan256/final
     python -m quantized_spectrum_cartography_tpu_torch.cli recover --config run.ini
+    python -m quantized_spectrum_cartography_tpu_torch.cli train-prior \
+        --kind vae --steps 20000 --checkpoint-dir checkpoints/prior
     python -m quantized_spectrum_cartography_tpu_torch.cli sweep --fractions 0.05 0.1
     python -m quantized_spectrum_cartography_tpu_torch.cli conditions \
         --ae-checkpoint checkpoints/ae_completion/final \
         --vae-checkpoint checkpoints/vae_peak_z256 [--axis fraction]
 
-All run on the GPU unless ``--device cpu`` is given.  The deep prior of
+All run on the GPU unless ``--device cpu`` is given; there they run in IEEE
+float32 (`config.set_card_numerics`), and without a GPU they fail.  The deep
+prior of
 mle-gan and dowjons is the VAE of ``checkpoints/vae_best/final`` (in this
 repository) unless ``--prior-checkpoint`` names another checkpoint
 directory; with ``--prior-kind gan`` it is a Generator256 checkpoint
 directory or an ``.npz`` of the generator's tree with "/"-joined keys
 (``training.checkpoints.load_npz_tree``).  ``--config`` takes an INI or
 JSON file (``config.load_config_file``) whose sections override the flags'
-defaults, as in the JAX package.
+defaults, as in the JAX package.  ``train-prior`` writes its checkpoints
+with ``training.checkpoints.save_checkpoint`` (the GAN's and the AE's and
+VAE's under ``<checkpoint-dir>/final``, the AAE's in the directory itself),
+which ``recover --prior-checkpoint`` reads, and prints one JSON line.
 """
 
 from __future__ import annotations
@@ -203,6 +210,56 @@ def _cmd_recover(args):
                  C_true=prob.C_true.cpu().numpy())
 
 
+def _cmd_train_prior(args):
+    """Train a prior at the JAX configurations' defaults (JAX
+    ``cli.py:_cmd_train_prior``).  The last line printed is JSON: the
+    logged lines, the run's seconds (set-up and the checkpoint's write
+    included) and its steady steps/s, between the first and the last
+    logged step (a log reads the losses, so it waits for the device)."""
+    import time
+
+    from quantized_spectrum_cartography_tpu_torch.training import (
+        AETrainConfig, GANTrainConfig, VAETrainConfig, train_ae, train_gan,
+        train_vae)
+    from quantized_spectrum_cartography_tpu_torch.training.aae_trainer import (
+        AAETrainConfig, train_aae)
+
+    gen = _generator(args.device, args.seed)
+    log = {"log_every": args.log_every} if args.log_every else {}
+    lines, stamps = [], []
+
+    def log_fn(line):
+        print(line, flush=True)
+        lines.append(line)
+        stamps.append((int(line.split()[2].rstrip(":")), time.perf_counter()))
+
+    t = time.perf_counter()
+    if args.kind == "gan":
+        train_gan(gen, GANTrainConfig(steps=args.steps, z_dim=args.z_dim,
+                                      batch_size=args.batch),
+                  checkpoint_dir=args.checkpoint_dir, log_fn=log_fn, **log)
+    elif args.kind == "ae":
+        train_ae(gen, AETrainConfig(steps=args.steps, batch_size=args.batch),
+                 checkpoint_dir=args.checkpoint_dir, log_fn=log_fn, **log)
+    elif args.kind == "vae":
+        train_vae(gen, VAETrainConfig(steps=args.steps,
+                                      batch_size=args.batch),
+                  checkpoint_dir=args.checkpoint_dir, log_fn=log_fn, **log)
+    else:
+        train_aae(gen, AAETrainConfig(steps=args.steps, z_dim=args.z_dim,
+                                      batch_size=args.batch),
+                  checkpoint_dir=args.checkpoint_dir, log_fn=log_fn, **log)
+    secs = time.perf_counter() - t
+    rate = None
+    if len(stamps) > 1:
+        (n0, t0), (n1, t1) = stamps[0], stamps[-1]
+        rate = (n1 - n0) / (t1 - t0)
+    print(json.dumps({"kind": args.kind, "steps": args.steps,
+                      "batch": args.batch, "device": str(gen.device),
+                      "seconds": secs, "steps_per_s": rate, "log": lines,
+                      "checkpoint_dir": args.checkpoint_dir}))
+
+
 def _cmd_sweep(args):
     """TPS and SPA-NMF over a fraction sweep (JAX ``cli.py:_cmd_sweep``)."""
     from quantized_spectrum_cartography_tpu_torch.baselines import (
@@ -303,6 +360,20 @@ def _parser():
     pr.add_argument("--device", default="cuda")
     pr.set_defaults(fn=_cmd_recover)
 
+    pt = sub.add_parser("train-prior", help="train GAN/AE/VAE/AAE prior")
+    pt.add_argument("--kind", choices=["gan", "ae", "vae", "aae"],
+                    default="gan")
+    pt.add_argument("--steps", type=int, default=20000)
+    pt.add_argument("--batch", type=int, default=64)
+    pt.add_argument("--z-dim", type=int, default=256)
+    pt.add_argument("--checkpoint-dir", default="checkpoints/prior")
+    pt.add_argument("--seed", type=int, default=0)
+    pt.add_argument("--log-every", type=int, default=None,
+                    help="steps between logged losses (default: the "
+                         "trainer's, 200, or 500 for the AAE)")
+    pt.add_argument("--device", default="cuda")
+    pt.set_defaults(fn=_cmd_train_prior)
+
     pw = sub.add_parser("sweep", help="baseline evaluation sweep")
     pw.add_argument("--fractions", type=float, nargs="+", default=[0.05, 0.1])
     pw.add_argument("--examples", type=int, default=3)
@@ -344,6 +415,14 @@ def recovery(argv) -> Recovery:
 
 def main(argv=None):
     args = _parser().parse_args(argv)
+    if torch.device(args.device).type == "cuda":
+        if not torch.cuda.is_available():
+            raise SystemExit(f"--device {args.device}: no CUDA device "
+                             f"(use --device cpu to run on the CPU)")
+        from quantized_spectrum_cartography_tpu_torch.config import (
+            set_card_numerics)
+
+        set_card_numerics()
     args.fn(args)
 
 

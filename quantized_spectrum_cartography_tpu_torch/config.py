@@ -15,6 +15,19 @@ import os
 import typing
 from typing import Tuple
 
+import torch
+
+
+def set_card_numerics() -> None:
+    """IEEE float32 on the card: no TF32 in matmuls or cuDNN convolutions,
+    and deterministic cuDNN algorithms chosen without benchmarking, so that a
+    run on the card computes what the CPU tests hold against the JAX
+    package.  Process-wide; every entry point that runs on CUDA calls it."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+
 
 @dataclasses.dataclass(frozen=True)
 class PhysicsConfig:

@@ -15,7 +15,19 @@ from quantized_spectrum_cartography_tpu_torch.models.generator import (  # noqa:
     Generator512,
     make_generator,
 )
+from quantized_spectrum_cartography_tpu_torch.models.discriminator import (  # noqa: F401
+    Discriminator,
+    SNDiscriminator,
+)
 from quantized_spectrum_cartography_tpu_torch.models.vae import (  # noqa: F401
     VAE,
     betaVAE,
+)
+from quantized_spectrum_cartography_tpu_torch.models.layers import (  # noqa: F401
+    total_variation_loss,
+)
+from quantized_spectrum_cartography_tpu_torch.models.aae import (  # noqa: F401
+    AAEDecoder,
+    AAEEncoder,
+    LatentDiscriminator,
 )

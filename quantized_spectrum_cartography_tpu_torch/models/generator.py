@@ -4,9 +4,9 @@ Port of ``quantized_spectrum_cartography_tpu/models/generator.py``: the same
 stage tables, each stage ConvTranspose -> BatchNorm (eps 1e-5, running
 statistics) -> ReLU, then Conv k4 and a sigmoid; the shape walk is
 1 -> 3 -> 6 -> 12 -> 26 -> 54 -> 51.  Internally NCHW; `forward` keeps the
-JAX module's output layout, Z [N, z] -> [N, 51, 51, 1].  The module is meant
-for inference (`eval()`), as the solvers use it; trained weights come from the
-JAX package's parameters through ``training.checkpoints``.
+JAX module's output layout, Z [N, z] -> [N, 51, 51, 1].  The builders return
+it in eval mode, as the solvers use it; trained weights come from a checkpoint
+through ``training.checkpoints``, and ``training.gan_trainer`` trains it.
 """
 
 from __future__ import annotations
@@ -17,6 +17,7 @@ import torch
 import torch.nn as nn
 
 from quantized_spectrum_cartography_tpu_torch.models.layers import (
+    BatchNorm,
     conv_torch,
     convt_torch,
 )
@@ -62,7 +63,7 @@ class DCGANGenerator(nn.Module):
         convt, bn = [], []
         for f, k, s, p in stages:
             convt.append(convt_torch(width, f, k, s, p))
-            bn.append(nn.BatchNorm2d(f, eps=1e-5))
+            bn.append(BatchNorm(f))
             width = f
         self.convt = nn.ModuleList(convt)
         self.bn = nn.ModuleList(bn)

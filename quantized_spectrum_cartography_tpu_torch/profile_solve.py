@@ -1,8 +1,8 @@
 """Where the time of one solve goes on the GPU.
 
     python -m quantized_spectrum_cartography_tpu_torch.profile_solve \
-        [--solver lowrank|mle-gan|harness] [--method dowjons] [--batch N]
-        [--trace trace.json]
+        [--solver lowrank|mle-gan|harness|train] [--method dowjons]
+        [--kind gan|ae|vae|aae] [--batch N] [--trace trace.json]
 
 --solver lowrank (default): the bench protocol of ``chip_smoke.py`` (B
 51x51x64 maps, R=2, 50 outer x (5 S + 5 C) Adam steps, rank-10 projection
@@ -12,7 +12,10 @@ the entries observed, SolverConfig() defaults, f32 bin bounds.
 --solver harness: one of the published methods (``--method``, default
 dowjons) of ``baselines.load_pretrained_methods`` on a batch of base-condition
 examples (f=0.05, R=2, 51x51x64; ``--batch``, default 32), as
-``chip_smoke.py``'s harness phase runs it.
+``chip_smoke.py``'s harness phase runs it.  --solver train: TRAIN_STEPS
+training steps of the prior ``--kind`` (default gan) at its JAX
+configuration's full width, batch 64, from flax's initial weights, as
+``cli train-prior`` runs them ("batch" below counts the steps).
 Runs the solve once to warm up, once timed, then once under
 ``torch.profiler``.  Prints one JSON line: the card, the wall seconds of the
 timed solve (and of the profiled one, which the profiler slows on the host),
@@ -34,7 +37,7 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from quantized_spectrum_cartography_tpu_torch.config import (
-    PhysicsConfig, QuantizerConfig, SolverConfig)
+    PhysicsConfig, QuantizerConfig, SolverConfig, set_card_numerics)
 from quantized_spectrum_cartography_tpu_torch.models import Generator256
 from quantized_spectrum_cartography_tpu_torch.ops import boundaries as bnd
 from quantized_spectrum_cartography_tpu_torch.ops.lowrank import get_tensor
@@ -108,13 +111,51 @@ def harness_solve(batch, method):
     return run
 
 
+TRAIN_STEPS = 20
+
+
+def train_solve(kind, steps=TRAIN_STEPS):
+    """`steps` training steps of `kind` on the card; returns a fn."""
+    import dataclasses
+
+    from quantized_spectrum_cartography_tpu_torch.data.datasets import (
+        make_slf_sampler)
+    from quantized_spectrum_cartography_tpu_torch.training import (
+        aae_trainer as aae, ae_trainer as ae, gan_trainer as gan,
+        vae_trainer as vae)
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    if kind in ("gan", "aae"):
+        if kind == "gan":
+            cfg = gan.GANTrainConfig()
+            step = gan.make_train_step(*gan.init_gan(gen, cfg), cfg,
+                                       make_slf_sampler(device="cuda"))
+        else:
+            cfg = aae.AAETrainConfig()
+            step = aae.make_aae_step(*aae.init_aae(gen, cfg), cfg)
+
+        def run():
+            for _ in range(steps):
+                step(gen)
+        return run
+    trainer, cfg = ((ae.train_ae, ae.AETrainConfig(steps=steps))
+                    if kind == "ae" else
+                    (vae.train_vae, vae.VAETrainConfig(steps=steps)))
+    model, _ = trainer(gen, dataclasses.replace(cfg, steps=0))
+    return lambda: trainer(gen, cfg, model=model, log_every=steps + 1)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--solver", choices=["lowrank", "mle-gan", "harness"],
+    ap.add_argument("--solver",
+                    choices=["lowrank", "mle-gan", "harness", "train"],
                     default="lowrank")
     ap.add_argument("--method", default="dowjons",
                     choices=["tps", "btd", "deepcomp", "nasdac", "dowjons"],
                     help="the harness method to profile")
+    ap.add_argument("--kind", default="gan", choices=["gan", "ae", "vae",
+                                                      "aae"],
+                    help="the prior whose training to profile")
     ap.add_argument("--batch", type=int, default=None,
                     help="maps per low-rank solve (256) or harness "
                          "examples (32)")
@@ -124,13 +165,15 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    set_card_numerics()
     if args.solver == "mle-gan":
         maps, run = 1, mle_gan_solve()
     elif args.solver == "lowrank":
         maps = args.batch or 256
         run = lowrank_solve(maps)
+    elif args.solver == "train":
+        maps = args.batch or TRAIN_STEPS
+        run = train_solve(args.kind, maps)
     else:
         maps = args.batch or 32
         run = harness_solve(maps, args.method)
@@ -160,8 +203,9 @@ def main(argv=None):
                   key=lambda a: a.self_cpu_time_total, reverse=True)
     print(json.dumps({
         "card": torch.cuda.get_device_name(0),
-        "solver": (args.solver if args.solver != "harness"
-                   else f"harness {args.method}"),
+        "solver": {"harness": f"harness {args.method}",
+                   "train": f"train {args.kind}"}.get(args.solver,
+                                                      args.solver),
         "batch": maps,
         "wall_s": wall_s,
         "maps_per_s": maps / wall_s,

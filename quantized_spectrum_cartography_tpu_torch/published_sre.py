@@ -27,6 +27,8 @@ import time
 import numpy as np
 import torch
 
+from quantized_spectrum_cartography_tpu_torch.config import set_card_numerics
+
 PUBLISHED = {"dowjons": 0.3163, "nasdac": 1.1751, "deepcomp": 0.4201,
              "btd": 1.2288, "tps": 1.9181}
 METHODS = ("tps", "btd", "deepcomp", "nasdac", "dowjons")
@@ -95,8 +97,7 @@ def main(argv=None):
         print(f"[{time.time() - t0:7.1f}s]", *a, flush=True)
 
     if torch.device(args.device).type == "cuda":
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
+        set_card_numerics()
     methods = load_pretrained_methods(only=METHODS, device=args.device)
     harness = BatchedHarness(methods, log_fn=log, device=args.device)
     cond = Condition(fraction=args.fraction)

@@ -1,28 +1,37 @@
-"""The priors' weights: the JAX package's orbax checkpoints read without
-orbax, and flax parameter trees mapped onto the port's modules.
+"""The priors' weights: checkpoints read and written without orbax, and flax
+parameter trees mapped onto the port's modules and back.
 
-`load_checkpoint` reads a checkpoint directory that the JAX package wrote
-(``training/checkpoints.py:save_checkpoint``, orbax's standard layout): the
-tree paths from ``_METADATA``, each array as zarr v2 chunks (``.zarray``
-metadata and zstd-compressed chunks) in the OCDBT store of `training.ocdbt`.
-It returns the nested dict of numpy arrays that the JAX package's
-``load_checkpoint(path)`` returns, with the same keys, dtypes, shapes and
-bits; scalars are 0-d arrays there and here.
+`load_checkpoint` reads two layouts:
 
-A flax parameter tree ({"params": ..., "batch_stats": ...}) becomes a torch
-state_dict:
+- a checkpoint directory that the JAX package wrote
+  (``training/checkpoints.py:save_checkpoint``, orbax's standard layout):
+  the tree paths from ``_METADATA``, each array as zarr v2 chunks
+  (``.zarray`` metadata and zstd-compressed chunks) in the OCDBT store of
+  `training.ocdbt`.  It returns the nested dict of numpy arrays that the
+  JAX package's ``load_checkpoint(path)`` returns, with the same keys,
+  dtypes, shapes and bits; scalars are 0-d arrays there and here;
+- a directory that this package's `save_checkpoint` wrote: ``arrays.npz``,
+  the array leaves under their "/"-joined paths, and ``leaves.json``, the
+  other leaves (numbers, strings, an AAE's ``config``) under theirs.  The
+  trees the port's trainers save are in flax's layout (flax's names, HWIO
+  kernels), so the loaders read a prior trained here as one trained by the
+  JAX package.
+
+A flax parameter tree ({"params": ..., "batch_stats": ...,
+["spectral_stats": ...]}) becomes a torch state_dict (`state_dict_from_flax`;
+`flax_from_state_dict` is its inverse):
 
 - ``ConvTranspose`` kernels [kh, kw, in, out] become torch's
   [in, out, kh, kw], flipped in both spatial axes: flax applies the kernel
   unflipped to the dilated input, torch's transpose convolution flips it;
-- ``Conv`` kernels [kh, kw, in, out] become [out, in, kh, kw], unflipped;
+- ``Conv`` and ``SNConv`` kernels [kh, kw, in, out] become [out, in, kh,
+  kw], unflipped; a spectral norm's ``spectral_stats`` vector ``u`` becomes
+  the layer's buffer ``u``;
 - ``Dense`` kernels [in, out] become Linear weights [out, in];
 - BatchNorm ``scale``/``bias`` and ``batch_stats`` ``mean``/``var`` become
   ``weight``/``bias``/``running_mean``/``running_var``;
 - ``scale``, where a generator's tree has one, is the output divisor that
   the CLI applies to the generator (JAX ``cli.py:_load_prior``).
-
-Saving waits for the port's trainers, which will save in torch's format.
 """
 
 from __future__ import annotations
@@ -92,18 +101,65 @@ def _zarr_array(store: OcdbtReader, name: str) -> np.ndarray:
     return out
 
 
+ARRAYS, LEAVES = "arrays.npz", "leaves.json"
+
+
+def _leaf_paths(tree: Dict[str, Any], prefix: str = ""):
+    for name, node in tree.items():
+        if isinstance(node, dict) and node:
+            yield from _leaf_paths(node, f"{prefix}{name}/")
+        else:
+            yield prefix + name, node
+
+
+def save_checkpoint(path: str, tree: Dict[str, Any]) -> None:
+    """Write the nested dict `tree` to the directory `path` (made if
+    missing, its two files replaced): array leaves (numpy arrays, tensors)
+    to ``arrays.npz`` with their dtypes and bits, every other leaf (a
+    number, a string, an empty dict) to ``leaves.json``.  `load_checkpoint`
+    gives the tree back, leaf for leaf."""
+    arrays, leaves = {}, {}
+    for key, node in _leaf_paths(tree):
+        if isinstance(node, torch.Tensor):
+            node = node.detach().cpu().numpy()
+        if isinstance(node, (np.ndarray, np.generic)):
+            arrays[key] = np.asarray(node)
+        else:
+            leaves[key] = node
+    os.makedirs(path, exist_ok=True)
+    np.savez(os.path.join(path, ARRAYS), **arrays)
+    with open(os.path.join(path, LEAVES), "w") as f:
+        json.dump(leaves, f, indent=1, sort_keys=True)
+
+
+def _load_port_checkpoint(path: str) -> Dict[str, Any]:
+    tree = load_npz_tree(os.path.join(path, ARRAYS))
+    with open(os.path.join(path, LEAVES)) as f:
+        leaves = json.load(f)
+    for key, value in leaves.items():
+        *parents, leaf = key.split("/")
+        node = tree
+        for name in parents:
+            node = node.setdefault(name, {})
+        node[leaf] = value
+    return tree
+
+
 def load_checkpoint(path: str) -> Dict[str, Any]:
-    """The nested dict of numpy arrays in the orbax checkpoint at `path`,
-    as the JAX package's ``load_checkpoint(path)`` returns it.  Any fault
-    in the tree raises (`FormatError` for its contents); nothing returns a
+    """The nested dict in the checkpoint directory at `path`: an orbax
+    checkpoint of the JAX package, as its ``load_checkpoint(path)`` returns
+    it (numpy arrays), or one that `save_checkpoint` wrote.  Any fault in an
+    orbax tree raises (`FormatError` for its contents); nothing returns a
     partial tree."""
     path = os.path.abspath(path)
+    if os.path.exists(os.path.join(path, ARRAYS)):
+        return _load_port_checkpoint(path)
     try:
         with open(os.path.join(path, "_METADATA")) as f:
             meta = json.load(f)
     except FileNotFoundError:
-        raise FormatError(f"{path}: no _METADATA, not an orbax checkpoint") \
-            from None
+        raise FormatError(f"{path}: neither _METADATA (an orbax checkpoint) "
+                          f"nor {ARRAYS} (this package's)") from None
     if meta.get("use_zarr3"):
         raise FormatError(f"{path}: zarr v3 arrays are not supported")
     store = OcdbtReader(path)
@@ -187,19 +243,21 @@ def _batch_norm(sd, prefix, params, stats) -> None:
 
 
 # flax's auto-named layers -> the port's ModuleLists (`Conv_3` -> `conv.3`)
-_LISTS = {"Conv": "conv", "ConvTranspose": "convt", "BatchNorm": "bn"}
+_LISTS = {"Conv": "conv", "SNConv": "conv", "ConvTranspose": "convt",
+          "BatchNorm": "bn", "Dense": "dense"}
 
 
 def state_dict_from_flax(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-    """state_dict of the port's `models.ae` / `models.vae` modules (and,
-    renamed by `generator_state_dict_from_flax`, its generators) from a
-    flax {"params": ..., "batch_stats": ...} tree of the same module: named
-    submodules (``encoder``, ``mean_head``, ...) keep their names, flax's
-    ``<Layer>_<i>`` become ``<list>.<i>``, ``log_gain`` stays a parameter.
-    Other top-level entries (a VAE's ``latent_dim``, ...) are ignored."""
+    """state_dict of the port's modules (and, renamed by
+    `generator_state_dict_from_flax`, its generators) from a flax
+    {"params": ..., "batch_stats": ..., ["spectral_stats": ...]} tree of the
+    same module: named submodules (``encoder``, ``mean_head``,
+    ``Encoder_0``, ...) keep their names, flax's ``<Layer>_<i>`` become
+    ``<list>.<i>``, ``log_gain`` stays a parameter.  Other top-level entries
+    (a VAE's ``latent_dim``, ...) are ignored."""
     sd: Dict[str, torch.Tensor] = {}
 
-    def walk(params, stats, prefix):
+    def walk(params, stats, spectral, prefix):
         for name, node in params.items():
             kind, _, index = name.rpartition("_")
             target = (f"{prefix}{_LISTS[kind]}.{index}."
@@ -216,15 +274,88 @@ def state_dict_from_flax(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
                     else _conv(k) if k.ndim == 4 else _t(k).T.contiguous())
                 if "bias" in node:
                     sd[target + "bias"] = _t(node["bias"])
+                if kind == "SNConv":
+                    sd[target + "u"] = _t(spectral[name]["u"])
             else:
-                walk(node, stats.get(name, {}), target)
+                walk(node, stats.get(name, {}), spectral.get(name, {}),
+                     target)
 
-    walk(tree["params"], tree.get("batch_stats", {}), "")
+    walk(tree["params"], tree.get("batch_stats", {}),
+         tree.get("spectral_stats", {}), "")
     return sd
 
 
+# the port's lists -> flax's layer kinds (a `conv.<i>` with a `u` buffer is
+# an SNConv)
+_KINDS = {"conv": "Conv", "convt": "ConvTranspose", "bn": "BatchNorm",
+          "dense": "Dense"}
+
+
+def _np(x: torch.Tensor) -> np.ndarray:
+    return x.detach().cpu().numpy().astype(np.float32)
+
+
+def flax_from_state_dict(sd: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+    """The flax {"params": ..., "batch_stats": ..., ["spectral_stats":
+    ...]} tree (numpy float32) of a state_dict of the port's modules: the
+    inverse of `state_dict_from_flax`.  BatchNorm's ``num_batches_tracked``
+    has no flax counterpart and is dropped."""
+    layers: Dict[Tuple[str, ...], Dict[str, torch.Tensor]] = {}
+    for key, value in sd.items():
+        *path, leaf = key.split(".")
+        layers.setdefault(tuple(path), {})[leaf] = value
+    out: Dict[str, Any] = {"params": {}}
+
+    def put(collection, path, leaf, value):
+        node = out.setdefault(collection, {})
+        for name in path:
+            node = node.setdefault(name, {})
+        node[leaf] = value
+
+    for path, leaves in layers.items():
+        names, kind = [], None
+        for name in path:
+            if name.isdigit() and names and names[-1] in _KINDS:
+                kind = ("SNConv" if names[-1] == "conv" and "u" in leaves
+                        else _KINDS[names[-1]])
+                names[-1] = f"{kind}_{name}"
+            else:
+                names.append(name)
+                kind = None
+        for leaf, value in leaves.items():
+            if kind == "BatchNorm":
+                if leaf in ("weight", "bias"):
+                    put("params", names, "scale" if leaf == "weight"
+                        else leaf, _np(value))
+                elif leaf != "num_batches_tracked":
+                    put("batch_stats", names, leaf[len("running_"):],
+                        _np(value))
+            elif leaf == "weight":
+                w = value.detach().cpu()
+                w = (w.permute(2, 3, 0, 1).flip(0, 1)
+                     if kind == "ConvTranspose" else w.permute(2, 3, 1, 0)
+                     if w.ndim == 4 else w.T)
+                put("params", names, "kernel", _np(w))
+            elif leaf == "u":
+                put("spectral_stats", names, "u", _np(value))
+            else:                          # a bias, or a bare parameter
+                put("params", names, leaf, _np(value))
+    return out
+
+
 # the generator's names where flax's differ: its Dense stem, its one Conv
-_GENERATOR_NAMES = (("Dense_0.", "stem."), ("conv.0.", "conv."))
+_GENERATOR_NAMES = (("dense.0.", "stem."), ("conv.0.", "conv."))
+
+
+def _renamed(sd, pairs):
+    out = {}
+    for key, value in sd.items():
+        for old, new in pairs:
+            if key.startswith(old):
+                key = new + key[len(old):]
+                break
+        out[key] = value
+    return out
 
 
 def generator_state_dict_from_flax(
@@ -232,14 +363,15 @@ def generator_state_dict_from_flax(
 ) -> Tuple[Dict[str, torch.Tensor], float]:
     """(state_dict of `DCGANGenerator`, output scale) from a flax generator's
     {"params": ..., "batch_stats": ..., ["scale"]} tree."""
-    sd = {}
-    for key, value in state_dict_from_flax(tree).items():
-        for flax_name, name in _GENERATOR_NAMES:
-            if key.startswith(flax_name):
-                key = name + key[len(flax_name):]
-        sd[key] = value
+    sd = _renamed(state_dict_from_flax(tree), _GENERATOR_NAMES)
     scale = float(np.asarray(tree["scale"])) if "scale" in tree else 1.0
     return sd, scale
+
+
+def flax_from_generator(gen: DCGANGenerator) -> Dict[str, Any]:
+    """The flax {"params": ..., "batch_stats": ...} tree of a generator."""
+    return flax_from_state_dict(_renamed(
+        gen.state_dict(), [(new, old) for old, new in _GENERATOR_NAMES]))
 
 
 def load_generator(tree: Dict[str, Any], z_dim: int = 256,

@@ -1,6 +1,8 @@
 """The port's checkpoint reader against the JAX package's orbax loader: the
 same tree, bit for bit, on the repository's trained priors; a tree of
-several B-tree levels as tensorstore writes it; faults raise."""
+several B-tree levels as tensorstore writes it; faults raise.  The port's
+writer: its trees back bit for bit, read by the loaders of the priors, in
+the layouts of the JAX trainers."""
 
 import json
 import os
@@ -10,6 +12,7 @@ import jax
 import numpy as np
 import pytest
 import tensorstore as ts
+import torch
 
 from quantized_spectrum_cartography_tpu.training import (
     load_checkpoint as jax_load_checkpoint,
@@ -20,6 +23,7 @@ from quantized_spectrum_cartography_tpu.training.checkpoints import (
 from quantized_spectrum_cartography_tpu_torch.training import (
     latest_step_dir,
     load_checkpoint,
+    save_checkpoint,
 )
 from quantized_spectrum_cartography_tpu_torch.training.checkpoints import (
     DIGESTS,
@@ -157,3 +161,133 @@ def test_latest_step_dir_matches(tmp_path):
     got = latest_step_dir(str(tmp_path))
     assert got == jax_latest_step_dir(str(tmp_path))
     assert got.endswith("step_300")
+
+
+# ------------------------------------------------------- the port's writer
+
+
+def _tree():
+    rng = np.random.default_rng(0)
+    return {
+        "params": {"Dense_0": {"kernel": rng.normal(size=(3, 4)).astype(
+            np.float32), "bias": np.zeros(4, np.float32)},
+            "log_gain": np.float32(0.25)},
+        "batch_stats": {"BatchNorm_0": {"mean": rng.normal(size=5),
+                                        "var": np.ones(5, np.float64)}},
+        "steps": np.arange(6, dtype=np.int32).reshape(2, 3),
+        "tensor": torch.arange(4.0),
+        "scale": 2.5,
+        "config": {"z_dim": 64, "lr_ae": 1e-3, "name": "aae", "flag": True},
+        "empty": {},
+    }
+
+
+def test_save_checkpoint_round_trip_bitwise(tmp_path):
+    """Every array leaf back with its dtype, shape and bytes (a tensor as
+    a numpy array), every other leaf back equal and of its type, the
+    nesting as written; a second save replaces the first."""
+    path = str(tmp_path / "ckpt")
+    save_checkpoint(path, {"old": np.ones(3)})
+    save_checkpoint(path, _tree())
+    got = load_checkpoint(path)
+    want = _tree()
+    assert sorted(got) == sorted(want)
+    flat_got, flat_want = dict(_flat(got)), dict(_flat(want))
+    flat_want["tensor"] = flat_want["tensor"].numpy()
+    flat_want["params/log_gain"] = np.asarray(flat_want["params/log_gain"])
+    assert sorted(flat_got) == sorted(flat_want)
+    for k, v in flat_want.items():
+        if isinstance(v, np.ndarray):
+            assert isinstance(flat_got[k], np.ndarray), k
+            assert (flat_got[k].dtype, flat_got[k].shape) == (v.dtype,
+                                                              v.shape), k
+            assert flat_got[k].tobytes() == v.tobytes(), k
+        else:
+            assert type(flat_got[k]) is type(v) and flat_got[k] == v, k
+    assert got["empty"] == {} and got["config"]["flag"] is True
+
+
+def test_port_written_priors_load_through_the_loaders(tmp_path):
+    """A generator and a VAE saved in flax's layout by the port load back
+    through load_generator / load_vae_prior, the same paths that read the
+    JAX package's trees: the same weights and outputs."""
+    from quantized_spectrum_cartography_tpu_torch.models import (
+        VAE,
+        Generator256,
+    )
+    from quantized_spectrum_cartography_tpu_torch.solvers import (
+        load_vae_prior,
+    )
+    from quantized_spectrum_cartography_tpu_torch.training import (
+        flax_from_state_dict,
+        load_generator,
+        save_checkpoint,
+    )
+    from quantized_spectrum_cartography_tpu_torch.training.checkpoints import (
+        flax_from_generator,
+    )
+
+    g = Generator256(seed=1)
+    save_checkpoint(str(tmp_path / "gan"),
+                    {**flax_from_generator(g), "scale": 2.5})
+    g2, scale = load_generator(load_checkpoint(str(tmp_path / "gan")))
+    assert scale == 2.5
+    for k, v in g.state_dict().items():
+        if "num_batches" not in k:
+            assert torch.equal(v, g2.state_dict()[k]), k
+    torch.manual_seed(2)
+    vae = VAE().eval()
+    save_checkpoint(str(tmp_path / "vae"),
+                    flax_from_state_dict(vae.state_dict()))
+    gen, latent, _ = load_vae_prior(str(tmp_path / "vae"))
+    z = torch.randn(3, 64, generator=torch.Generator().manual_seed(3))
+    with torch.no_grad():
+        assert torch.equal(gen(z), vae.decode(z)[:, 0] * 0.26)
+    assert latent == 64
+
+
+def test_trainers_write_the_jax_layouts(tmp_path):
+    """GAN: step_<n> every checkpoint_every and final, each with scale; AE:
+    final with scale; VAE: final without; AAE: the directory itself, with
+    its config.  latest_step_dir finds the GAN's last step."""
+    from quantized_spectrum_cartography_tpu_torch.config import PhysicsConfig
+    from quantized_spectrum_cartography_tpu_torch.training import (
+        AETrainConfig,
+        GANTrainConfig,
+        VAETrainConfig,
+        train_ae,
+        train_gan,
+        train_vae,
+    )
+    from quantized_spectrum_cartography_tpu_torch.training.aae_trainer import (
+        AAETrainConfig,
+        train_aae,
+    )
+
+    phys = PhysicsConfig(decorrelation_distance=30.0)
+    gen = torch.Generator().manual_seed(0)
+    quiet = dict(log_fn=lambda *a: None)
+    train_gan(gen, GANTrainConfig(steps=2, batch_size=2, z_dim=64), phys,
+              checkpoint_dir=str(tmp_path / "gan"), checkpoint_every=1,
+              **quiet)
+    assert sorted(os.listdir(tmp_path / "gan")) == ["final", "step_1",
+                                                    "step_2"]
+    assert latest_step_dir(str(tmp_path / "gan")).endswith("step_2")
+    for name in ("step_1", "final"):
+        tree = load_checkpoint(str(tmp_path / "gan" / name))
+        assert sorted(tree) == ["batch_stats", "params", "scale"]
+        assert tree["scale"] == 2.5
+    train_ae(gen, AETrainConfig(steps=1, batch_size=2), phys,
+             checkpoint_dir=str(tmp_path / "ae"), **quiet)
+    assert sorted(load_checkpoint(str(tmp_path / "ae" / "final"))) == [
+        "batch_stats", "params", "scale"]
+    train_vae(gen, VAETrainConfig(steps=1, batch_size=2, latent_dim=8),
+              phys, checkpoint_dir=str(tmp_path / "vae"), **quiet)
+    assert sorted(load_checkpoint(str(tmp_path / "vae" / "final"))) == [
+        "batch_stats", "params"]
+    train_aae(gen, AAETrainConfig(steps=1, batch_size=2, z_dim=16), phys,
+              checkpoint_dir=str(tmp_path / "aae"), log_every=0)
+    tree = load_checkpoint(str(tmp_path / "aae"))
+    assert sorted(tree) == ["config", "dec", "dec_stats", "dz", "enc",
+                            "enc_stats"]
+    assert tree["config"]["z_dim"] == 16 and "Encoder_0" in tree["enc"]

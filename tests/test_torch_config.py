@@ -101,3 +101,29 @@ def test_cli_recover_config(config_file, capsys):
     res = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert res["solver"] == "mle-gan" and res["iters"] == 2
     assert res["final_cost"] > 0 and res["final_nmse"] > 0
+
+
+def test_set_card_numerics_turns_tf32_off():
+    """The card's numerics, which cli.main sets for a CUDA device: no TF32
+    in matmuls or cuDNN, deterministic cuDNN without benchmarking.  The
+    process-wide flags are restored afterwards."""
+    from quantized_spectrum_cartography_tpu_torch.config import (
+        set_card_numerics,
+    )
+
+    flags = (torch.backends.cuda.matmul, "allow_tf32"), \
+        (torch.backends.cudnn, "allow_tf32"), \
+        (torch.backends.cudnn, "deterministic"), \
+        (torch.backends.cudnn, "benchmark")
+    saved = [getattr(o, name) for o, name in flags]
+    try:
+        torch.backends.cudnn.allow_tf32 = True
+        torch.backends.cudnn.benchmark = True
+        set_card_numerics()
+        assert torch.backends.cudnn.allow_tf32 is False
+        assert torch.backends.cuda.matmul.allow_tf32 is False
+        assert torch.backends.cudnn.deterministic is True
+        assert torch.backends.cudnn.benchmark is False
+    finally:
+        for (o, name), value in zip(flags, saved):
+            setattr(o, name, value)

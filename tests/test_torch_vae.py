@@ -309,8 +309,9 @@ def test_upsample_and_total_variation_match():
 
 def test_batch_norm_matches_flax_in_both_modes():
     """Training mode: normalized by the batch, running statistics moved
-    by flax's momentum 0.9 (torch's 0.1; torch keeps the unbiased batch
-    variance, flax the biased one); inference: the running statistics."""
+    by flax's momentum 0.9 (torch's 0.1) with the biased batch variance,
+    as flax moves them (torch's own BatchNorm2d takes the unbiased one);
+    inference: the running statistics."""
     x = np.random.default_rng(12).normal(1.0, 2.0, (8, 5, 5, 3)).astype(
         np.float32)
     jbn = jlayers.BatchNorm()
@@ -326,9 +327,11 @@ def test_batch_norm_matches_flax_in_both_modes():
     n = x.shape[0] * x.shape[1] * x.shape[2]
     np.testing.assert_allclose(tbn.running_mean.numpy(),
                                np.asarray(stats["mean"]), **TOL)
+    np.testing.assert_allclose(tbn.running_var.numpy(),
+                               np.asarray(stats["var"]), **TOL)
     np.testing.assert_allclose(
         tbn.running_var.numpy(),
-        0.9 + 0.1 * x.reshape(-1, 3).var(0, ddof=1), **TOL)
+        0.9 + 0.1 * x.reshape(-1, 3).var(0, ddof=0), **TOL)
     np.testing.assert_allclose(
         np.asarray(stats["var"]),
         0.9 + 0.1 * x.reshape(-1, 3).var(0) * n / n, **TOL)

@@ -34,7 +34,46 @@ Phases, each printing one line with its seconds:
                their shapes and finite costs, the final NMSE must be finite
                and < 1, and the same solve with nll_mode="plain" must reach
                the same final costs (rtol 1e-3)
-  6. checkpoints - the trained priors read from checkpoints/ by the port's
+  6. serve  - the port's RecoveryScheduler (parallel/scheduler.py) over
+               the batched 1-bit solver at serving_bench.py's configuration
+               (51x51x64, R=2, batch 64, 50 outer x (5 S + 5 C) Adam steps,
+               S0 = 0, C0 = 0.01, observations bit-packed on the wire, S, C
+               and the final cost sent back): first the packed requests
+               through the native C++ queue (runtime/, built with g++ at
+               first use) byte for byte, a check of the ported queue apart
+               from the served path (the scheduler takes requests through
+               Python's queue, as the JAX package's does); 256 requests in
+               a closed loop, then 70 more (a padded last batch); the 1-bit
+               pair must launch 500 / 500 times a dispatched batch and no
+               other kernel, every request's S, C and cost must equal a
+               direct solve of the batch it rode in (pad slots included)
+               bit for bit, costs be finite and the mean NMSE < 1; the
+               direct solves, back to back, give the raw bound; the first
+               batch of 64 distinct requests solved again with
+               nll_mode="plain" (final costs, rtol 1e-3) and the 1-bit pair
+               at B=64 on its final factors against its plain version
+               (parity's tolerances); then an
+               open loop of 128 Poisson arrivals at 0.9 of the raw bound:
+               raw and closed-loop maps/s and the open loop's
+               p50/p95/p99/max latency
+  7. distributed - a world-size-1 nccl process group on the card: the
+               K-sharded ordinal solve (parallel/sharded_solver.py; 51x51,
+               K=64, R=2, B=2, 4-bin log quantizer at sigma 5, 50 Adam
+               steps) against the same solve without a group (costs rtol
+               2e-4, factors rtol 1e-3 / atol 1e-6, JAX's tolerances),
+               falling, and no kernel launched (plain likelihood, as in
+               JAX); at world size 1 its all-reduces see one rank, so this
+               checks that the path runs under nccl, not the collective's
+               arithmetic (the CPU tests split K over two gloo ranks);
+               multihost_recover_lowrank in this process on the regenerate
+               path (4 maps x 10 outer x (2 S + 2 C) steps): the 1-bit pair
+               must launch 40 / 40 times and the same rows solved with
+               nll_mode="plain" reach the same final costs (rtol 1e-3);
+               then multihost_launch.py in a fresh process
+               on the --shard-dir path (a prep process writes the shard,
+               the worker reads it through the native loader): its final
+               costs must equal this process's bit for bit
+  8. checkpoints - the trained priors read from checkpoints/ by the port's
                reader (no orbax): gan256/final, vae_best/final,
                vae_peak_z256, ae_completion/final, each tree's paths and
                shapes held against its _METADATA, and each leaf's dtype,
@@ -45,7 +84,7 @@ Phases, each printing one line with its seconds:
                vae_peak_z256 decoders) on the card against the same modules
                on the CPU, which the CPU tests hold against flax: 8 seeded
                latents, rtol 1e-4, atol 1e-5
-  7. main_gan - MLE-GAN at full width: the trained Generator256
+  9. main_gan - MLE-GAN at full width: the trained Generator256
                (checkpoints/gan256/final), a problem it
                can realize (T = sum_r G(Z_true)_r |c_r|, K=64, 2 emitters,
                4-bin log quantizer, sigma 5, 10% entry mask), recover_mle_gan
@@ -59,7 +98,7 @@ Phases, each printing one line with its seconds:
                starts at 0, where log(C S + 1e-10) makes the first C
                gradient so large that Adam's second moment stalls C near
                0.03, and sigma 5 leaves the 4 bins little to tell
-  8. main_vae - `recover --solver mle-gan` at the CLI's defaults, in this
+  10. main_vae - `recover --solver mle-gan` at the CLI's defaults, in this
                process: the trained VAE prior (checkpoints/vae_best/final),
                a simulated 51x51x64 map, R=2, 10% observed, the 4-bin log
                quantizer at sigma 5, 100 iterations; the bounds pair must
@@ -69,7 +108,7 @@ Phases, each printing one line with its seconds:
                (final costs, rtol 1e-3; the final Z's difference printed);
                then `recover --solver dowjons` at its defaults: finite,
                falling costs and C >= 0
-  9. harness - the five published methods (tps, btd, deepcomp, nasdac,
+  11. harness - the five published methods (tps, btd, deepcomp, nasdac,
                dowjons) from load_pretrained_methods at the registry's
                defaults (checkpoints/ae_completion/final and
                checkpoints/vae_peak_z256) through BatchedHarness at the base
@@ -86,11 +125,11 @@ Phases, each printing one line with its seconds:
                relative Frobenius 1e-3 of the card's T_hat (a differing
                SPA column or witness peak is printed), btd's and dowjons'
                SRE differences printed
-  10. main_lowrank_ordinal - recover_lowrank_mle at B=256 on obs_encoding
+  12. main_lowrank_ordinal - recover_lowrank_mle at B=256 on obs_encoding
                "codes" and "bounds", cut from 50 to 10 outer iterations to
                keep the plain solves short, each against nll_mode="plain"
                (final costs, rtol 1e-3)
-  11. train  - prior training at the JAX configurations' full widths (GAN:
+  13. train  - prior training at the JAX configurations' full widths (GAN:
                Generator256, z 256, against the SN discriminator; AE: the
                selu Autoencoder; VAE: latent 64, decoder width 16; AAE:
                z 64; batch 64 each):
@@ -112,7 +151,7 @@ Phases, each printing one line with its seconds:
                    fresh process, its final cost within rtol 1e-3 of
                    main_vae's in-process run: the CLI sets the card's
                    numerics itself
-  12. timing - every kernel's and its plain version's ms (CUDA events over
+  14. timing - every kernel's and its plain version's ms (CUDA events over
                back-to-back calls, in turns plain, kernel, kernel, plain),
                the kernel's device time (graph_ms: TIMING_REPS calls captured
                in one CUDA graph, its replays timed with CUDA events, so the
@@ -123,7 +162,9 @@ Phases, each printing one line with its seconds:
 cuDNN runs without TF32 and with deterministic algorithms
 (config.set_card_numerics, which the CLI sets too), so the solve
 comparisons measure the likelihood kernels, not convolution atomics.
-The line before the last two is the kernels' JSON record; then nvidia-smi's
+The line before the last two is the kernels' JSON record (each kernel's
+launches on the main path, and under the scheduler in `serve_launches`);
+then nvidia-smi's
 "name, power.limit"; the last line is {"ok": true, "device": {...}}.  Any
 failure, or running past DEADLINE_S, exits non-zero without that line.
 """
@@ -182,6 +223,17 @@ PRIOR_RTOL, PRIOR_ATOL = 1e-4, 1e-5
 TRAIN_KINDS = ("gan", "ae", "vae", "aae")
 CLI = (sys.executable, "-m", "quantized_spectrum_cartography_tpu_torch.cli")
 TRAIN_STEPS, TRAIN_LOG_EVERY, TRAIN_PARITY_STEPS = 300, 30, 3
+# serving: the scheduler's static batch, the closed-loop requests, the
+# requests after them (a padded last batch), the open loop's requests and
+# its offered load as a fraction of the raw bound
+SERVE_BATCH, SERVE_CLOSED, SERVE_EXTRA, SERVE_OPEN = 64, 256, 70, 128
+OPEN_FRAC = 0.9
+# distribution: the K-sharded solve (maps, Adam steps; JAX's tolerances:
+# costs rtol, factors rtol and atol), the multi-process launch (maps, outer
+# iterations)
+KSHARD_BATCH, KSHARD_ITERS = 2, 50
+KSHARD_COST_RTOL, KSHARD_RTOL, KSHARD_ATOL = 2e-4, 1e-3, 1e-6
+LAUNCH_BATCH, LAUNCH_ITERS = 4, 10
 # the CPU tests' tolerances (tests/test_torch_train_support.py): losses on
 # the initial weights, later losses, weights in units of lr (every entry;
 # the median and nine in ten), running statistics
@@ -489,6 +541,295 @@ def main_path(card):
     C = res.C.transpose(1, 2).contiguous()
     g = torch.full((BATCH,), 1.0 / T_obs[0].numel(), device=DEVICE)
     return launches, (S_flat, C, codes, g), T_obs
+
+
+def serve():
+    """The port's RecoveryScheduler over the batched 1-bit solver at the
+    serving configuration (serving_bench.py): the packed requests through
+    the native queue, a closed loop and a padded last batch, each request
+    bitwise against a direct solve of the batch it rode in, then an open
+    loop.  Returns the kernels' launches under the scheduler and the 1-bit
+    pair's max abs errors against its plain version at the serving
+    shape."""
+    import numpy as np
+
+    from quantized_spectrum_cartography_tpu_torch import serving_bench as sb
+    from quantized_spectrum_cartography_tpu_torch.ops.kernels import (
+        onebit_nll as k, quantized_nll as q)
+    from quantized_spectrum_cartography_tpu_torch.parallel import (
+        RecoveryScheduler)
+    from quantized_spectrum_cartography_tpu_torch.runtime import (
+        NativeBatchQueue)
+
+    n = SERVE_CLOSED + SERVE_EXTRA
+    T_true, packed = sb.make_requests(n, DEVICE)
+    wire = NativeBatchQueue(capacity=n, item_bytes=packed[0].nbytes)
+    pushed = all(wire.push(p, timeout_ms=1000) for p in packed)
+    popped = np.concatenate([wire.pop_batch(SERVE_BATCH, timeout_ms=1000)
+                             for _ in range(-(-n // SERVE_BATCH))])
+    wire.close()
+    same_bytes = pushed and np.array_equal(popped.reshape(packed.shape),
+                                           packed)
+    print(f"serve: {n} packed requests of {packed[0].nbytes} bytes through "
+          f"the native queue byte for byte: {same_bytes}", flush=True)
+    if not same_bytes:
+        fail("the native queue did not give the requests back unchanged")
+
+    solver = sb.make_solver(sb.serving_config(OUTER, INNER))
+    batches = []          # (ids, observations) of every dispatched batch
+
+    def recording(stacked):
+        batches.append((stacked["id"], stacked["T_obs"]))
+        return solver(stacked)
+
+    payloads = [{"T_obs": packed[i], "id": np.int64(i)} for i in range(n)]
+    k.reset_launches()
+    q.reset_launches()
+    sched = RecoveryScheduler(recording, batch_size=SERVE_BATCH,
+                              max_wait_ms=20.0, pipeline_depth=3,
+                              drain_threads=2, device=DEVICE)
+    results, _, done, t0 = sb.run_stream(sched, payloads[:SERVE_CLOSED])
+    closed = SERVE_CLOSED / (done.max() - t0)
+    results += sb.run_stream(sched, payloads[SERVE_CLOSED:])[0]
+    sched.shutdown()
+    dispatch = sched.solve_seconds
+    launches = {name: getattr(k if name.startswith("onebit") else q,
+                              name + "_cuda").launches for name in KERNELS}
+    per_solve = OUTER * 2 * INNER
+    want = {name: (sched.batches_dispatched * per_solve
+                   if name.startswith("onebit") else 0) for name in KERNELS}
+    print(f"serve: {sched.batches_dispatched} batches, {sched.maps_completed}"
+          f" maps; launches {launches}", flush=True)
+    if launches != want or sched.maps_completed != n:
+        fail(f"serving launched {launches}, expected {want} "
+             f"({per_solve} a batch), or completed {sched.maps_completed} "
+             f"of {n} maps")
+
+    # the same stacked batches, solved directly back to back: the raw bound
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    outs, calls = [], []
+    for _, obs in batches:
+        t_call = time.perf_counter()
+        outs.append(solver({"T_obs": obs}))
+        calls.append(time.perf_counter() - t_call)
+    direct = [{key: v.cpu().numpy() for key, v in o.items()} for o in outs]
+    raw = len(batches) * SERVE_BATCH / (time.perf_counter() - t)
+    equal, padded = True, 0
+    for (ids, _), ref in zip(batches, direct):
+        ids = ids.cpu().numpy()
+        real = [0] + [j for j in range(1, SERVE_BATCH) if ids[j] != ids[0]]
+        padded += len(real) < SERVE_BATCH
+        equal = equal and all(
+            np.array_equal(results[ids[j]][key], ref[key][j])
+            for j in real for key in ("S", "C", "cost"))
+    finite = all(np.isfinite(r["cost"]) for r in results)
+    mean_nmse = sb.served_nmse(results, T_true)
+    print(f"serve: every request bitwise equal to a direct solve of its "
+          f"batch: {equal} ({padded} padded batches); costs finite "
+          f"{finite}; mean NMSE {mean_nmse:.4f}", flush=True)
+    if not (equal and padded and finite and mean_nmse < 1.0):
+        fail("served results differ from direct solves, no batch was "
+             "padded, or the quality gate failed")
+    # a batch of SERVE_BATCH distinct requests (no pad slots) on the plain path
+    full = [i for i, (ids, _) in enumerate(batches)
+            if len(set(ids.cpu().tolist())) == SERVE_BATCH]
+    if not full:
+        fail("no dispatched batch held SERVE_BATCH distinct requests")
+    errs = serve_plain(batches[full[0]][1], outs[full[0]])
+
+    gaps = np.random.default_rng(7).exponential(
+        1.0 / (OPEN_FRAC * raw), size=SERVE_OPEN)
+    sched = RecoveryScheduler(solver, batch_size=SERVE_BATCH,
+                              max_wait_ms=20.0, pipeline_depth=3,
+                              drain_threads=2, device=DEVICE)
+    res_open, sub, done, _ = sb.run_stream(sched, payloads[:SERVE_OPEN], gaps)
+    sched.shutdown()
+    lat = sb.latency_summary(done - sub)
+    print(f"serve: raw {raw:.2f} maps/s, closed loop {closed:.2f} maps/s = "
+          f"{closed / raw:.4f} of raw; open loop of {SERVE_OPEN} at "
+          f"{OPEN_FRAC} of raw: p50 {lat['latency_p50_s']:.3f} s, p95 "
+          f"{lat['latency_p95_s']:.3f} s, p99 {lat['latency_p99_s']:.3f} s, "
+          f"max {lat['latency_max_s']:.3f} s on {sb.card_line()}",
+          flush=True)
+    print(f"serve: host seconds a batch, dispatch thread (closed loop) "
+          f"{' '.join(f'{x:.3f}' for x in dispatch)}; main thread (direct) "
+          f"{' '.join(f'{x:.3f}' for x in calls)}", flush=True)
+    if not all(np.isfinite(r["cost"]) for r in res_open):
+        fail("non-finite costs in the open loop")
+    return launches, errs
+
+
+def serve_plain(obs, out):
+    """One served batch (packed observations `obs`, its kernel solve `out`)
+    against the plain path: the batch solved again with nll_mode="plain"
+    (final costs, COST_RTOL), then the 1-bit pair on the solve's final
+    factors against its plain version at this shape (parity's tolerances).
+    Returns the pair's max abs errors."""
+    from quantized_spectrum_cartography_tpu_torch import serving_bench as sb
+    from quantized_spectrum_cartography_tpu_torch.ops.kernels import (
+        onebit_nll as k)
+    from quantized_spectrum_cartography_tpu_torch.ops.quantizer import (
+        unpack_bits)
+
+    B = obs.shape[0]
+    plain = sb.make_solver(sb.serving_config(OUTER, INNER),
+                           nll_mode="plain")({"T_obs": obs})
+    c, c0 = out["cost"], plain["cost"]
+    cost_rel = ((c - c0).abs() / c0.abs()).max().item()
+    y01 = unpack_bits(obs, GRID * GRID).reshape(B, BANDS, GRID, GRID)
+    codes = k.pack_codes_1bit(y01)
+    S = out["S"].reshape(B, RANK, -1).contiguous()
+    C = out["C"].transpose(1, 2).contiguous()
+    g = torch.full((B,), 1.0 / y01[0].numel(), device=DEVICE)
+    v = k.onebit_nll_fwd_cuda(S, C, codes, MEAN, STD)
+    dS, dC = k.onebit_nll_bwd_cuda(S, C, codes, g, MEAN, STD)
+    v0 = k.onebit_nll_plain(S, C, codes, MEAN, STD)
+    dS0, dC0 = k.onebit_nll_grad_plain(S, C, codes, g, MEAN, STD)
+    rel_v, (rel_s, rel_c) = rel_errs(v, v0, (dS, dC), (dS0, dC0))
+    print(f"serve: a batch of {B} on nll_mode=\"plain\": final costs rel "
+          f"{cost_rel:.2e}; the 1-bit pair at B={B} on its final factors: "
+          f"value rel {rel_v:.2e}, dS {rel_s:.2e}, dC {rel_c:.2e} of max",
+          flush=True)
+    if not (cost_rel <= COST_RTOL and rel_v <= VALUE_RTOL
+            and rel_s <= GRAD_RTOL and rel_c <= GRAD_RTOL):
+        fail("at the serving shape the kernels disagree with their plain "
+             "version")
+    return {"onebit_nll_fwd": (v - v0).abs().max().item(),
+            "onebit_nll_bwd": max((dS - dS0).abs().max().item(),
+                                  (dC - dC0).abs().max().item())}
+
+
+def distributed(card):
+    """A world-size-1 nccl group on the card: the K-sharded solve against
+    the same solve without a process group (one rank: the path, not the
+    all-reduce's arithmetic), the in-process multi-host solve with its
+    launches counted and against its plain path, then multihost_launch.py
+    in a fresh process on the native shard path, bitwise against it."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from quantized_spectrum_cartography_tpu_torch import multihost_launch as mh
+    from quantized_spectrum_cartography_tpu_torch.config import (
+        QuantizerConfig, SolverConfig)
+    from quantized_spectrum_cartography_tpu_torch.ops import boundaries as bnd
+    from quantized_spectrum_cartography_tpu_torch.ops.kernels import (
+        onebit_nll as k, quantized_nll as q)
+    from quantized_spectrum_cartography_tpu_torch.ops.likelihood import (
+        gather_bin_bounds)
+    from quantized_spectrum_cartography_tpu_torch.ops.quantizer import (
+        quantize_log)
+    from quantized_spectrum_cartography_tpu_torch.parallel import (
+        init_distributed, make_global_mesh, make_mesh,
+        multihost_recover_lowrank, recover_lowrank_mle_ksharded)
+
+    B, P = KSHARD_BATCH, GRID * GRID
+    table, offset, sigma = (bnd.QUANTIZATION_BOUNDARIES_4_BINS_LOG,
+                            bnd.LOG_OFFSET_4, 5.0)
+    gen = torch.Generator(device=DEVICE).manual_seed(3)
+    S_true = 0.05 * torch.rand(B, RANK, P, generator=gen, device=DEVICE)
+    C_true = torch.rand(B, RANK, BANDS, generator=gen, device=DEVICE)
+    Y = quantize_log(torch.einsum("brp,brk->bkp", S_true, C_true), sigma,
+                     table, offset, gen)
+    W, U = gather_bin_bounds(Y, table)
+    qcfg = QuantizerConfig(boundaries=table, noise_std=sigma,
+                           log_offset=offset)
+    scfg = SolverConfig(max_iters=KSHARD_ITERS, lr_s=0.003,
+                        projection_interval=5, rank_truncation=10)
+    S0 = torch.zeros(B, RANK, P, device=DEVICE)
+    C0 = torch.full((B, RANK, BANDS), 0.01, device=DEVICE)
+    solo = recover_lowrank_mle_ksharded(make_mesh(), W, U, S0, C0, scfg, qcfg)
+
+    T_obs = mh.problem_rows(0, LAUNCH_BATCH)
+    inits = (np.zeros((LAUNCH_BATCH, RANK, GRID, GRID), np.float32),
+             np.full((LAUNCH_BATCH, RANK, BANDS), 0.01, np.float32))
+    lcfg = mh.solver_config(LAUNCH_ITERS)
+
+    def counts():
+        return {name: getattr(k if name.startswith("onebit") else q,
+                              name + "_cuda").launches for name in KERNELS}
+
+    rdv = tempfile.mkdtemp(prefix="qsc_smoke_")
+    init_distributed(f"file://{rdv}/rendezvous", 1, 0, DEVICE)
+    try:
+        mesh = make_global_mesh()
+        k.reset_launches()
+        q.reset_launches()
+        t = time.perf_counter()
+        grouped = recover_lowrank_mle_ksharded(mesh, W, U, S0, C0, scfg, qcfg)
+        torch.cuda.synchronize()
+        ksharded_s = time.perf_counter() - t
+        ksharded_launches = counts()
+        k.reset_launches()
+        q.reset_launches()
+        local, total = multihost_recover_lowrank(
+            mesh, T_obs, *inits, lcfg, mh.MEAN, mh.STD, device=DEVICE)
+        launches = counts()
+        plain, _ = multihost_recover_lowrank(
+            mesh, T_obs, *inits, lcfg, mh.MEAN, mh.STD, device=DEVICE,
+            nll_mode="plain")
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(rdv)
+
+    cost_rel = ((grouped[2] - solo[2]).abs() / solo[2].abs()).max().item()
+    factor_ok = all(torch.allclose(a, b, rtol=KSHARD_RTOL, atol=KSHARD_ATOL)
+                    for a, b in zip(grouped[:2], solo[:2]))
+    falling = bool((grouped[2][:, -1] < grouped[2][:, 0]).all())
+    print(f"distributed: K-sharded solve ({B} maps, {P} pixels, K={BANDS}, "
+          f"{KSHARD_ITERS} steps) under an nccl group of 1 against no group: "
+          f"costs rel {cost_rel:.2e}, factors within rtol {KSHARD_RTOL} "
+          f"{factor_ok}; costs falling {falling}; {ksharded_s:.3f} s on "
+          f"{card}", flush=True)
+    if not (cost_rel <= KSHARD_COST_RTOL and factor_ok and falling
+            and not any(ksharded_launches.values())):
+        fail(f"the K-sharded solve under a process group differs from the "
+             f"solve without one, did not progress, or launched a kernel: "
+             f"{ksharded_launches}")
+    per_solve = LAUNCH_ITERS * (lcfg.s_inner_iters + lcfg.c_inner_iters)
+    want = {name: per_solve if name.startswith("onebit") else 0
+            for name in KERNELS}
+    c, c0 = local["costs"][:, -1], plain["costs"][:, -1]
+    plain_rel = float(np.max(np.abs(c - c0) / np.abs(c0)))
+    print(f"distributed: multihost_recover_lowrank ({LAUNCH_BATCH} maps x "
+          f"{LAUNCH_ITERS} x ({lcfg.s_inner_iters} + {lcfg.c_inner_iters})) "
+          f"launches {launches}; against nll_mode=\"plain\" on the same "
+          f"rows: final costs rel {plain_rel:.2e}", flush=True)
+    if launches != want or not plain_rel <= COST_RTOL:
+        fail(f"multihost_recover_lowrank launched {launches}, expected "
+             f"{want}, or disagrees with its plain path")
+
+    shards, out = OUT_DIR / "shards", OUT_DIR / "multihost.json"
+    shutil.rmtree(shards, ignore_errors=True)
+    out.unlink(missing_ok=True)
+    t = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "quantized_spectrum_cartography_tpu_torch."
+         "multihost_launch", "--num-processes", "1", "--global-batch",
+         str(LAUNCH_BATCH), "--iters", str(LAUNCH_ITERS), "--reps", "1",
+         "--device", DEVICE,
+         "--shard-dir", str(shards), "--out", str(out), "--timeout", "240"],
+        capture_output=True, text=True, timeout=300, cwd=ROOT)
+    wall = time.perf_counter() - t
+    if proc.returncode != 0:
+        fail(f"multihost_launch exited {proc.returncode}: "
+             f"{proc.stderr.strip()[-2000:]}")
+    summary = json.loads(out.read_text())
+    tail = [float(c) for c in local["costs"][:, -1]]
+    same = (summary["data_path"] == "native_shard"
+            and summary["global_costs_tail"] == tail
+            and summary["global_cost"] == total)
+    print(f"distributed: multihost_launch --shard-dir in a fresh process "
+          f"({wall:.2f} s; {summary['maps_per_sec']:.2f} maps/s, "
+          f"{LAUNCH_BATCH} maps x {LAUNCH_ITERS} iterations) equals the "
+          f"in-process regenerate path bit for bit: {same} (total "
+          f"{summary['global_cost']!r} vs {total!r})", flush=True)
+    if not same:
+        fail("the native shard path in a fresh process differs from the "
+             "in-process regenerate path")
 
 
 def timed(fn):
@@ -1405,6 +1746,10 @@ def main():
     errs = phase("parity", parity)
     errs.update(phase("parity_ordinal", parity_ordinal))
     launches, inputs_1bit, T_obs = phase("main", lambda: main_path(card))
+    launches_serve, errs_serve = phase("serve", serve)
+    for name, err in errs_serve.items():
+        errs[name] = max(errs[name], err)
+    phase("distributed", lambda: distributed(card))
     trees = phase("checkpoints", checkpoints)
     launches_gan, inputs_gan = phase("main_gan",
                                      lambda: main_gan(card, trees))
@@ -1426,6 +1771,7 @@ def main():
             "ms": ms[name][0], "graph_ms": ms[name][2],
             "plain_ms": ms[name][1], "bound_ms": bounds[name][0],
             "bound_by": bounds[name][1], "library_ms": None,
+            "serve_launches": launches_serve[name],
             "main_vae_launches": launches_vae.get(name, 0),
             "train_recover_launches": launches_train.get(name, 0),
         }

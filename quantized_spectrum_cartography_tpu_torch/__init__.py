@@ -14,7 +14,10 @@ package's orbax checkpoints without orbax (``training.checkpoints``); and
 every likelihood kernel of the JAX package, as CUDA C++: the 1-bit pair
 (``ops.kernels.onebit_nll``, ``csrc/onebit_nll.cu``) and the ordinal
 bounds/coded pairs (``ops.kernels.quantized_nll``, one tile body in
-``csrc/ordinal_tile.cuh``).
+``csrc/ordinal_tile.cuh``); serving and scale-out: the continuous-batching
+``parallel.RecoveryScheduler`` over the batched 1-bit solver, the data- and
+K-sharded solvers and the multi-process layer under ``torch.distributed``
+(``parallel``), and the native C++ queue and shard loader (``runtime``).
 
 Layout
 ------
@@ -25,6 +28,10 @@ Layout
 - ``training``  the JAX package's checkpoints (an OCDBT/zarr reader) and
                 their parameter trees mapped onto the models
 - ``solvers``   recovery loops and the randomized latent search
+- ``parallel``  the (data, model) process layout, sharded solvers, the
+                multi-process entry and the serving scheduler
+- ``runtime``   the native C++ batching queue and shard loader, built with
+                g++ at first use into ``build/``
 - ``csrc``      hand-written CUDA sources, built at first use into ``build/``
 """
 

@@ -129,7 +129,41 @@ Phases, each printing one line with its seconds:
                "codes" and "bounds", cut from 50 to 10 outer iterations to
                keep the plain solves short, each against nll_mode="plain"
                (final costs, rtol 1e-3)
-  13. train  - prior training at the JAX configurations' full widths (GAN:
+  13. fixture - a .mat in the reference's MATLAB layouts (T, T_true,
+               S_true (I,J,R), C_true (K,R), Om) written with scipy from one
+               simulated 51x51x64, R=2 problem under build/chip_smoke/, read
+               back by data.load_onebit_fixture bit for bit; then `recover
+               --fixture` in this process at the CLI's defaults: --solver
+               lowrank must launch the 1-bit pair 100 x (5 + 5) = 1000 /
+               1000 times and no other kernel, --solver mle-gan the bounds
+               pair 2*100+2 / 2*100; each final cost within rtol 1e-3 of
+               the same recovery with nll_mode="plain", each --out npz
+               holding the arrays `cli report` reads
+  14. dip    - the deep-image prior: DecoderDip (z 256, train mode, 3 z's)
+               on the card against the same weights on the CPU, outputs
+               and moved running statistics within 1e-4 + 1e-5;
+               recover_dip_tensor, three steps on the card and on the CPU
+               from the same z's, weights, C0 and validation mask, at the
+               train phase's tolerances (losses; weights and C in units of
+               lr; running statistics); then one run at DIP_QUALITY.json's
+               configuration (1000 steps, lr 1e-3, z 256, holdout 0.05,
+               l2_c 0.03, validation EMA 0.9, output EMA 0.995) on a
+               simulated problem with the fixture-parity dither (mean
+               0.0005, std 0.008): the NMSE of T_ema and of the returned
+               factors, the low-rank solver's on the same observations
+               (50 x (10 + 10) steps, rank-10 SVD projection), the seconds;
+               finite, and T_ema's NMSE < 1
+  15. protocols - the evaluation's two protocols at a few examples: one
+               R-axis condition (R=5, 8 examples) through the six-method
+               and the plain registries (conditions_grid.py): the stack
+               deltas and the R-axis verdict printed (not gated at 8
+               examples), finite SREs and the pooled document's layout;
+               the miss protocol (missprob.py) at rho 1% and 10% on 8
+               examples: events, miss rates and the false-alarm guard
+               printed, finite SREs; two 4-example draws pooled
+               (missprob_pool_seeds.summed_events): the summed event counts
+               reproduced exactly.  None of the six kernels runs here
+  16. train  - prior training at the JAX configurations' full widths (GAN:
                Generator256, z 256, against the SN discriminator; AE: the
                selu Autoencoder; VAE: latent 64, decoder width 16; AAE:
                z 64; batch 64 each):
@@ -151,7 +185,7 @@ Phases, each printing one line with its seconds:
                    fresh process, its final cost within rtol 1e-3 of
                    main_vae's in-process run: the CLI sets the card's
                    numerics itself
-  14. timing - every kernel's and its plain version's ms (CUDA events over
+  17. timing - every kernel's and its plain version's ms (CUDA events over
                back-to-back calls, in turns plain, kernel, kernel, plain),
                the kernel's device time (graph_ms: TIMING_REPS calls captured
                in one CUDA graph, its replays timed with CUDA events, so the
@@ -163,7 +197,8 @@ cuDNN runs without TF32 and with deterministic algorithms
 (config.set_card_numerics, which the CLI sets too), so the solve
 comparisons measure the likelihood kernels, not convolution atomics.
 The line before the last two is the kernels' JSON record (each kernel's
-launches on the main path, and under the scheduler in `serve_launches`);
+launches on the main path, under the scheduler in `serve_launches`, and on
+the fixture path in `fixture_launches`);
 then nvidia-smi's
 "name, power.limit"; the last line is {"ok": true, "device": {...}}.  Any
 failure, or running past DEADLINE_S, exits non-zero without that line.
@@ -240,6 +275,24 @@ LAUNCH_BATCH, LAUNCH_ITERS = 4, 10
 FIRST_RTOL, LOSS_RTOL = 1e-5, 5e-3
 W_ATOL_LR, W_MEDIAN_LR, W_P90_LR = 7.0, 0.1, 0.5
 STATS_RTOL, STATS_ATOL = 5e-2, 5e-3
+# the .mat fixture's problem, and what `cli report` reads of an --out npz
+FIXTURE_SEED = 11
+REPORT_KEYS = {"S", "C", "T_hat", "nmses", "costs", "T_true", "S_true",
+               "C_true"}
+# DIP: DIP_QUALITY.json's configuration on a simulated problem, with the
+# fixture-parity dither (mean 0.0005, std 0.008); steps of the card-vs-CPU
+# check
+DIP_SEED, DIP_Z, DIP_STEPS, DIP_PARITY_STEPS = 12, 256, 1000, 3
+DIP_MEAN, DIP_STD = 0.0005, 0.008
+DIP = dict(lr=1e-3, holdout_frac=0.05, l2_c=0.03, val_ema_decay=0.9,
+           out_ema_decay=0.995)
+# the evaluation protocols at a few examples (one R-axis condition; the
+# miss protocol at two rhos; two draws pooled)
+PROTOCOL_EXAMPLES, POOL_EXAMPLES = 8, 4
+PROTOCOL_RHOS = (0.01, 0.10)
+POOLED_KEYS = {"sre", "sre_std", "sre_median", "nae_s", "nae_c", "miss_prob",
+               "false_prob", "miss_count", "peak_count", "false_count",
+               "low_count", "valid", "sre_all"}
 
 _T0 = time.monotonic()
 
@@ -1318,6 +1371,283 @@ def main_lowrank_ordinal(T_obs):
               q.onebit_bounds(MEAN), STD, 0.0, True, q._fast_ok(STD))
     return launches, inputs
 
+def kernel_counts():
+    """Each kernel's launch count since the last `reset_counts`."""
+    from quantized_spectrum_cartography_tpu_torch.ops.kernels import (
+        onebit_nll as k, quantized_nll as q)
+
+    return {name: getattr(k if name.startswith("onebit") else q,
+                          name + "_cuda").launches for name in KERNELS}
+
+
+def reset_counts():
+    from quantized_spectrum_cartography_tpu_torch.ops.kernels import (
+        onebit_nll as k, quantized_nll as q)
+
+    k.reset_launches()
+    q.reset_launches()
+
+
+def write_fixture(path):
+    """A .mat in the reference's MATLAB layouts (generate_test_data.m:78-80)
+    from one simulated 51x51x64, R=2 problem; the source tensors' arrays."""
+    import numpy as np
+    import scipy.io as sio
+
+    from quantized_spectrum_cartography_tpu_torch.physics import (
+        generate_onebit_problem)
+
+    prob = generate_onebit_problem(
+        torch.Generator(device=DEVICE).manual_seed(FIXTURE_SEED),
+        sample_fraction=0.1, device=DEVICE)
+    src = {name: getattr(prob, name).cpu().numpy()
+           for name in ("T_true", "S_true", "C_true", "T_1bit", "Om")}
+    sio.savemat(path, {"T": src["T_1bit"].transpose(1, 2, 0),
+                       "T_true": src["T_true"].transpose(1, 2, 0),
+                       "S_true": src["S_true"].transpose(1, 2, 0),
+                       "C_true": src["C_true"].T,
+                       "Om": src["Om"].astype(np.uint8)})
+    return src
+
+
+def fixture(card):
+    """The .mat fixture written and read back bit for bit, then `recover
+    --fixture` at the CLI's defaults with --solver lowrank (the 1-bit pair,
+    against nll_mode="plain") and mle-gan (the bounds pair; its --out npz
+    holds what `report` reads).  Returns each kernel's launches over both."""
+    import numpy as np
+
+    from quantized_spectrum_cartography_tpu_torch import cli
+    from quantized_spectrum_cartography_tpu_torch.data import (
+        load_onebit_fixture)
+
+    OUT_DIR.mkdir(parents=True, exist_ok=True)
+    path = str(OUT_DIR / "fixture.mat")
+    src = write_fixture(path)
+    prob = load_onebit_fixture(path, device=DEVICE)
+    for name, want in src.items():
+        got = getattr(prob, name).cpu().numpy()
+        if not (got.dtype == want.dtype and np.array_equal(got, want)):
+            fail(f"fixture: {name} read back {got.dtype} {got.shape}, "
+                 f"written {want.dtype} {want.shape}, or other bits")
+    print(f"fixture {path}: T_true, S_true, C_true, T_1bit, Om read back "
+          f"bit for bit ({prob.shape})", flush=True)
+
+    launches = dict.fromkeys(KERNELS, 0)
+    steps = CLI_ITERS * 2 * INNER             # --iters x (5 S + 5 C) steps
+    for solver, want in (
+            ("lowrank", {"onebit_nll_fwd": steps, "onebit_nll_bwd": steps}),
+            ("mle-gan", {"quantized_nll_fwd": 2 * CLI_ITERS + 2,
+                         "quantized_nll_bwd": 2 * CLI_ITERS})):
+        argv = ["recover", "--fixture", path, "--solver", solver]
+        out = str(OUT_DIR / f"fixture_{solver}.npz")
+        reset_counts()
+        line, secs = run_cli(argv + ["--out", out])
+        got = kernel_counts()
+        want = {**dict.fromkeys(KERNELS, 0), **want}
+        printed = json.loads(line)
+        plain = cli.recovery(argv).run(nll_mode="plain")
+        c0 = plain.costs[-1].item()
+        rel = abs(printed["final_cost"] - c0) / abs(c0)
+        keys = set(np.load(out).files)
+        print(f"fixture recover --solver {solver}: launches {got}; final "
+              f"cost {printed['final_cost']:.6g} (plain {c0:.6g}, rel "
+              f"{rel:.2e}), NMSE {printed['final_nmse']:.4f}; {secs:.3f} s "
+              f"on {card}; npz {sorted(keys)}", flush=True)
+        if got != want:
+            fail(f"recover --fixture --solver {solver}: launches {got}, "
+                 f"the loop implies {want}")
+        if not (np.isfinite(printed["final_cost"]) and rel <= COST_RTOL):
+            fail(f"recover --fixture --solver {solver}: final cost "
+                 f"{printed['final_cost']} against plain {c0}")
+        if not REPORT_KEYS <= keys:
+            fail(f"{out} lacks {sorted(REPORT_KEYS - keys)} (cli report)")
+        for name, n in got.items():
+            launches[name] += n
+    return launches
+
+
+def dip(card):
+    """DecoderDip and recover_dip_tensor on the card against the CPU, then
+    one run at DIP_QUALITY.json's configuration on a simulated problem."""
+    import copy
+
+    import numpy as np
+
+    from quantized_spectrum_cartography_tpu_torch.config import SolverConfig
+    from quantized_spectrum_cartography_tpu_torch.models import DecoderDip
+    from quantized_spectrum_cartography_tpu_torch.models.layers import (
+        flax_init_)
+    from quantized_spectrum_cartography_tpu_torch.ops.lowrank import (
+        get_tensor)
+    from quantized_spectrum_cartography_tpu_torch.ops.metrics import nmse
+    from quantized_spectrum_cartography_tpu_torch.ops.quantizer import (
+        dither_probit)
+    from quantized_spectrum_cartography_tpu_torch.physics import (
+        generate_onebit_problem)
+    from quantized_spectrum_cartography_tpu_torch.solvers import (
+        recover_dip_tensor, recover_lowrank_mle)
+
+    cpu_gen = torch.Generator().manual_seed(DIP_SEED)
+    cpu_dec = flax_init_(DecoderDip(DIP_Z), cpu_gen).train()
+    card_dec = copy.deepcopy(cpu_dec).to(DEVICE)
+    z = torch.randn(3, DIP_Z, generator=cpu_gen)
+    with torch.no_grad():
+        got, want = card_dec(z.to(DEVICE)).cpu(), cpu_dec(z)
+    a, b = flat_state({"dec": card_dec}), flat_state({"dec": cpu_dec})
+    err = ((got - want).abs() - PRIOR_RTOL * want.abs()).max().item()
+    stats = max(float(np.abs(a[k] - b[k]).max()) for k in b)
+    print(f"dip DecoderDip (train mode, 3 z's) on the card vs the CPU: max "
+          f"abs diff {(got - want).abs().max().item():.3g}, moved running "
+          f"statistics {stats:.3g}", flush=True)
+    if not (got.shape == want.shape == (3, GRID, GRID, 1)
+            and err <= PRIOR_ATOL and stats <= PRIOR_ATOL):
+        fail("DecoderDip: the card's forward differs from the CPU's")
+
+    gen = torch.Generator(device=DEVICE).manual_seed(DIP_SEED)
+    prob = generate_onebit_problem(gen, device=DEVICE)
+    T_obs = dither_probit(prob.T_true - DIP_MEAN, DIP_STD, gen)
+    R, I, J, K = prob.shape
+
+    # three steps from the same draws on the card and on the CPU
+    zs = torch.randn(R, 1, DIP_Z, generator=cpu_gen)
+    decs = [flax_init_(DecoderDip(DIP_Z), cpu_gen) for _ in range(R)]
+    C0 = 0.01 * torch.rand(R, K, generator=cpu_gen)
+    val_mask = (torch.rand(T_obs.shape, generator=cpu_gen)
+                < DIP["holdout_frac"]).float()
+
+    def steps(device, decoders):
+        return recover_dip_tensor(
+            None, T_obs.to(device), DIP_MEAN, DIP_STD, num_emitters=R,
+            steps=DIP_PARITY_STEPS, z_dim=DIP_Z,
+            T_true=prob.T_true.to(device), val_mask=val_mask.to(device),
+            init=(zs.to(device), decoders, C0.to(device)), **DIP)
+
+    card_decs = [copy.deepcopy(d).to(DEVICE) for d in decs]
+    got, want = steps(DEVICE, card_decs), steps("cpu", decs)
+    rel = (np.abs(got[2].cpu().numpy() - want[2].numpy())
+           / np.abs(want[2].numpy()))
+    a = flat_state({f"dec{r}": d for r, d in enumerate(card_decs)})
+    b = flat_state({f"dec{r}": d for r, d in enumerate(decs)})
+    stats = [k for k in b if k.split("/")[-1] in ("mean", "var")]
+    diffs = np.concatenate(
+        [np.abs(a[k] - b[k]).ravel() / DIP["lr"] for k in b
+         if k not in stats]
+        + [(got[1].cpu() - want[1]).abs().numpy().ravel() / DIP["lr"]])
+    median, p90, top = np.quantile(diffs, [0.5, 0.9, 1.0])
+    stats_ok = all(np.allclose(a[k], b[k], rtol=STATS_RTOL, atol=STATS_ATOL)
+                   for k in stats)
+    print(f"dip recover_dip_tensor card vs CPU, {DIP_PARITY_STEPS} steps: "
+          f"losses rel {rel.max():.2e} (first {rel[0]:.2e}); weights and C "
+          f"apart in lr units median {median:.3g}, p90 {p90:.3g}, max "
+          f"{top:.3g}; running statistics within rtol {STATS_RTOL} + atol "
+          f"{STATS_ATOL}: {stats_ok}", flush=True)
+    if not (rel[0] <= FIRST_RTOL and (rel <= LOSS_RTOL).all()
+            and top <= W_ATOL_LR and median <= W_MEDIAN_LR
+            and p90 <= W_P90_LR and stats_ok):
+        fail("recover_dip_tensor: the card's steps differ from the CPU's")
+
+    # one run at DIP_QUALITY.json's configuration
+    (S, C, losses, nmses, aux), secs = timed(lambda: recover_dip_tensor(
+        torch.Generator(device=DEVICE).manual_seed(DIP_SEED), T_obs,
+        DIP_MEAN, DIP_STD, num_emitters=R, steps=DIP_STEPS, z_dim=DIP_Z,
+        T_true=prob.T_true, **DIP))
+    nmse_ema = nmse(aux["T_ema"], prob.T_true).item()
+    nmse_factors = nmse(get_tensor(S, C), prob.T_true).item()
+    # the low-rank solver on the same observations (the fixture-parity
+    # protocol: 50 x (10 + 10) steps, rank-10 SVD projection every 5)
+    scfg = SolverConfig(max_iters=50, s_inner_iters=10, c_inner_iters=10,
+                        lr_s=1e-3, lr_c=1e-3, projection_interval=5,
+                        rank_truncation=10, projection_method="svd")
+    S0 = 0.01 * torch.randn(1, R, I, J, generator=gen, device=DEVICE)
+    C0 = 0.01 * torch.rand(1, R, K, generator=gen, device=DEVICE)
+    lowrank, lr_secs = timed(lambda: recover_lowrank_mle(
+        T_obs[None], S0, C0, scfg, DIP_MEAN, DIP_STD, l1=0.0, l2=0.01,
+        T_true=prob.T_true[None]))
+    finite = all(torch.isfinite(x).all() for x in
+                 (S, C, losses, nmses, aux["T_ema"]))
+    print(f"dip recover_dip_tensor ({DIP_STEPS} steps, {DIP}): NMSE of "
+          f"T_ema {nmse_ema:.4f}, of the returned factors "
+          f"{nmse_factors:.4f} (holdout {float(aux['holdout_best']):.4f}); "
+          f"{secs:.2f} s on {card}; the low-rank solver on the same "
+          f"observations NMSE {lowrank.nmses[0, -1].item():.4f} in "
+          f"{lr_secs:.2f} s", flush=True)
+    if not (finite and nmse_ema < 1):
+        fail(f"DIP: finite {finite}, NMSE of T_ema {nmse_ema}")
+
+
+def protocols(card):
+    """The condition grid's and the miss protocol's drivers at a few
+    examples: one R-axis condition through both registries, the miss
+    protocol at two rhos, and the pooling of two draws."""
+    import math
+
+    import numpy as np
+
+    from quantized_spectrum_cartography_tpu_torch import (
+        conditions_grid as cg, missprob as mp, missprob_pool_seeds as mps)
+    from quantized_spectrum_cartography_tpu_torch.baselines import (
+        BatchedHarness, Condition, load_pretrained_methods)
+
+    stack, plain = cg.harnesses(DEVICE, cg.POLISH)
+    cond = Condition(num_emitters=5)
+    label = cond.label()
+    row, wall, secs = cg.run_condition(stack, plain, cond,
+                                       PROTOCOL_EXAMPLES, 0, DEVICE)
+    doc = cg.grid_document({label: row}, PROTOCOL_EXAMPLES, 0)
+    rows = doc["results"][label]
+    methods = list(stack.methods) + list(plain.methods)
+    layout = (sorted(rows) == sorted(methods + ["nasdac_stack_delta",
+                                                "dowjons_stack_delta"])
+              and all(POOLED_KEYS <= set(rows[m]) for m in methods)
+              and all(len(rows[m]["sre_all"]) == PROTOCOL_EXAMPLES
+                      for m in methods))
+    finite = all(math.isfinite(v) for m in methods
+                 for v in rows[m]["sre_all"])
+    check = doc["r_axis_regression_check"]
+    print(f"protocols grid {label}, {PROTOCOL_EXAMPLES} examples: {wall:.2f}"
+          f" s on {card} ({', '.join(f'{m} {s:.2f}' for m, s in secs.items())}"
+          f"); SRE " + ", ".join(f"{m} {rows[m]['sre']:.4f}" for m in methods)
+          + f"; deltas nasdac {rows['nasdac_stack_delta']}, dowjons "
+          f"{rows['dowjons_stack_delta']}; R-axis check "
+          f"{'PASS' if check['pass'] else 'FAIL'} (printed, not gated, at "
+          f"{PROTOCOL_EXAMPLES} examples)", flush=True)
+    if not (layout and finite):
+        fail(f"condition grid: layout {layout}, finite SREs {finite}")
+
+    harness = BatchedHarness(load_pretrained_methods(
+        only=mp.METHODS, device=DEVICE, **cg.POLISH), device=DEVICE)
+    t = time.perf_counter()
+    events = mp.run_draw(harness, PROTOCOL_EXAMPLES, 0, PROTOCOL_RHOS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    guard = mp.false_guard(events)
+    for m, ev in events.items():
+        print(f"protocols miss {m:9s} rhos {PROTOCOL_RHOS}: events "
+              f"{[(e['miss'], e['peaks'], e['false'], e['lows']) for e in ev]}"
+              f", miss rates {[round(v, 4) for v in mp.curves(events)[m]]}",
+              flush=True)
+    print(f"protocols miss: {wall:.2f} s on {card}; false guard "
+          f"{ {m: g['false_rates'] for m, g in guard['per_method'].items()} }"
+          f" bounds {guard['per_method']['dowjons']['bounds']}: "
+          f"{'PASS' if guard['all_pass'] else 'FAIL'}", flush=True)
+    if not all(math.isfinite(e["sre"]) for ev in events.values()
+               for e in ev):
+        fail("miss protocol: a non-finite SRE")
+
+    draws = [{"events": mp.run_draw(harness, POOL_EXAMPLES, s,
+                                    PROTOCOL_RHOS)} for s in (0, 1)]
+    for m in mp.METHODS:
+        pooled = mps.summed_events(draws, m)
+        for key in pooled:
+            want = [a[key] + b[key] for a, b in zip(draws[0]["events"][m],
+                                                    draws[1]["events"][m])]
+            if not np.array_equal(pooled[key], want):
+                fail(f"pooling: {m} {key} {pooled[key]} != {want}")
+    print(f"protocols pooling of two {POOL_EXAMPLES}-example draws: the "
+          "summed event counts reproduced exactly", flush=True)
+
+
 def initial_state(kind):
     """{module: state_dict} of `kind` as its trainer initializes it, from
     CPU seed 0."""
@@ -1758,6 +2088,9 @@ def main():
     phase("harness", lambda: harness(card))
     launches_lr, inputs_lr = phase("main_lowrank_ordinal",
                                    lambda: main_lowrank_ordinal(T_obs))
+    launches_fixture = phase("fixture", lambda: fixture(card))
+    phase("dip", lambda: dip(card))
+    phase("protocols", lambda: protocols(card))
     launches_train = phase("train", lambda: train(card, vae_cost))
     ms, bounds, ms_lr, bounds_lr = phase(
         "timing", lambda: timing(inputs_1bit, inputs_gan, inputs_lr))
@@ -1774,6 +2107,7 @@ def main():
             "serve_launches": launches_serve[name],
             "main_vae_launches": launches_vae.get(name, 0),
             "train_recover_launches": launches_train.get(name, 0),
+            "fixture_launches": launches_fixture[name],
         }
         if name in ORDINAL:
             rec["lowrank_b256"] = {

@@ -17,14 +17,22 @@ bounds/coded pairs (``ops.kernels.quantized_nll``, one tile body in
 ``csrc/ordinal_tile.cuh``); serving and scale-out: the continuous-batching
 ``parallel.RecoveryScheduler`` over the batched 1-bit solver, the data- and
 K-sharded solvers and the multi-process layer under ``torch.distributed``
-(``parallel``), and the native C++ queue and shard loader (``runtime``).
+(``parallel``), and the native C++ queue and shard loader (``runtime``);
+the ``.mat`` fixture loader, the deep-image prior, the architecture-dict
+builders, the figures and profiling helpers (``utils``), and the
+evaluation's condition-grid and miss-probability protocols
+(``conditions_grid``, ``missprob``).  With these the port holds a
+counterpart of every module of the JAX package.
 
 Layout
 ------
 - ``ops``       quantizer, boundary tables, likelihood, rank-R
                 reconstruction, metrics, kernels
 - ``physics``   synthetic radio-map simulator
-- ``models``    the deep priors: DCGAN generators, autoencoders, the VAE
+- ``data``      the problem container, the ``.mat`` fixture, the
+                simulator-fed training batches
+- ``models``    the deep priors: DCGAN generators, autoencoders, the VAE,
+                the DIP decoder, the architecture-dict builders
 - ``training``  the JAX package's checkpoints (an OCDBT/zarr reader) and
                 their parameter trees mapped onto the models
 - ``solvers``   recovery loops and the randomized latent search
@@ -33,6 +41,7 @@ Layout
 - ``runtime``   the native C++ batching queue and shard loader, built with
                 g++ at first use into ``build/``
 - ``csrc``      hand-written CUDA sources, built at first use into ``build/``
+- ``utils``     figures (matplotlib, on the host) and profiling
 """
 
 __version__ = "0.1.0"

@@ -1,7 +1,9 @@
 """Command-line interface of the port: ``simulate``, ``recover --solver
-lowrank|mle-gan|dowjons`` (one-line JSON output), ``train-prior --kind
-gan|ae|vae|aae``, ``sweep`` and ``conditions`` (the evaluation harness, JSON
-results), with the JAX package's flags.
+lowrank|mle-gan|dowjons`` (one-line JSON output; a simulated problem, or
+the ``.mat`` fixture of ``--fixture``), ``train-prior --kind
+gan|ae|vae|aae``, ``report`` (figures of a ``recover --out`` npz),
+``sweep`` and ``conditions`` (the evaluation harness, JSON results), with
+the JAX package's flags.
 
     python -m quantized_spectrum_cartography_tpu_torch.cli simulate --out maps.npz
     python -m quantized_spectrum_cartography_tpu_torch.cli recover --solver lowrank
@@ -9,6 +11,10 @@ results), with the JAX package's flags.
     python -m quantized_spectrum_cartography_tpu_torch.cli recover \
         --solver dowjons --prior-kind gan --prior-checkpoint checkpoints/gan256/final
     python -m quantized_spectrum_cartography_tpu_torch.cli recover --config run.ini
+    python -m quantized_spectrum_cartography_tpu_torch.cli recover \
+        --solver lowrank --fixture onebitdata1.mat --out rec.npz
+    python -m quantized_spectrum_cartography_tpu_torch.cli report \
+        --recovery rec.npz --out-dir report
     python -m quantized_spectrum_cartography_tpu_torch.cli train-prior \
         --kind vae --steps 20000 --checkpoint-dir checkpoints/prior
     python -m quantized_spectrum_cartography_tpu_torch.cli sweep --fractions 0.05 0.1
@@ -16,7 +22,8 @@ results), with the JAX package's flags.
         --ae-checkpoint checkpoints/ae_completion/final \
         --vae-checkpoint checkpoints/vae_peak_z256 [--axis fraction]
 
-All run on the GPU unless ``--device cpu`` is given; there they run in IEEE
+All but ``report`` (matplotlib on the host) run on the GPU unless
+``--device cpu`` is given; there they run in IEEE
 float32 (`config.set_card_numerics`), and without a GPU they fail.  The deep
 prior of
 mle-gan and dowjons is the VAE of ``checkpoints/vae_best/final`` (in this
@@ -43,7 +50,6 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
-_NOT_PORTED = "not yet ported to the PyTorch package (see ROADMAP.md Queue 1)"
 DEFAULT_VAE = Path(__file__).resolve().parents[1] / "checkpoints" / \
     "vae_best" / "final"
 
@@ -83,18 +89,23 @@ def _cmd_simulate(args):
 def _recovery(args) -> Recovery:
     from quantized_spectrum_cartography_tpu_torch.config import (
         PhysicsConfig, load_config_file)
+    from quantized_spectrum_cartography_tpu_torch.data import (
+        load_onebit_fixture)
     from quantized_spectrum_cartography_tpu_torch.physics import (
         generate_onebit_problem)
 
-    if args.fixture:
-        raise SystemExit(f"--fixture: {_NOT_PORTED}")
     file_cfg = load_config_file(args.config) if args.config else None
     gen = _generator(args.device, file_cfg.seed if file_cfg else args.seed)
-    prob = generate_onebit_problem(
-        gen, file_cfg.physics if file_cfg else PhysicsConfig(),
-        sample_fraction=(file_cfg.solver.sample_fraction if file_cfg
-                         else args.fraction),
-        device=args.device)
+    if args.fixture:
+        # the low-rank path dithers T_true and ignores the file's T and Om,
+        # as the JAX CLI does
+        prob = load_onebit_fixture(args.fixture, device=args.device)
+    else:
+        prob = generate_onebit_problem(
+            gen, file_cfg.physics if file_cfg else PhysicsConfig(),
+            sample_fraction=(file_cfg.solver.sample_fraction if file_cfg
+                             else args.fraction),
+            device=args.device)
     if args.solver == "lowrank":
         run = _lowrank(args, file_cfg, gen, prob)
     else:
@@ -327,6 +338,39 @@ def _cmd_conditions(args):
     print(json.dumps(out, indent=2))
 
 
+def _cmd_report(args):
+    """Figures of a `recover --out` npz (JAX ``cli.py:_cmd_report``):
+    host-side rendering with matplotlib, no device."""
+    import os
+
+    from quantized_spectrum_cartography_tpu_torch.utils import viz
+
+    data = np.load(args.recovery)
+    os.makedirs(args.out_dir, exist_ok=True)
+    written = []
+
+    def save(fig, name):
+        path = os.path.join(args.out_dir, name)
+        fig.savefig(path, dpi=args.dpi)
+        written.append(path)
+
+    bands = tuple(args.bands)
+    save(viz.plot_recovery_panels(data["T_true"], data["T_hat"],
+                                  bands=bands), "panels.png")
+    save(viz.plot_recovery_panels(data["T_true"], data["T_hat"],
+                                  bands=bands, log_offset=1e-10),
+         "panels_log.png")
+    save(viz.plot_factors(data["S"], data["C"],
+                          S_true=data.get("S_true"),
+                          C_true=data.get("C_true")), "factors.png")
+    save(viz.plot_convergence({"nmse": data["nmses"]}), "nmse.png")
+    save(viz.plot_convergence({"cost": data["costs"]}, ylabel="cost",
+                              logy=False), "cost.png")
+    save(viz.plot_map_value_histogram(data["T_true"], log_domain=True),
+         "hist_log.png")
+    print(json.dumps({"written": written}))
+
+
 def _parser():
     p = argparse.ArgumentParser(prog="qsc-torch")
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -346,7 +390,7 @@ def _parser():
     pr.add_argument("--solver", choices=["lowrank", "mle-gan", "dowjons"],
                     default="lowrank")
     pr.add_argument("--fixture", default=None,
-                    help=".mat fixture path (else simulate; not yet ported)")
+                    help=".mat fixture path (else simulate)")
     pr.add_argument("--fraction", type=float, default=0.1)
     pr.add_argument("--std", type=float, default=0.008)
     pr.add_argument("--iters", type=int, default=100)
@@ -373,6 +417,14 @@ def _parser():
                          "trainer's, 200, or 500 for the AAE)")
     pt.add_argument("--device", default="cuda")
     pt.set_defaults(fn=_cmd_train_prior)
+
+    pp = sub.add_parser("report", help="render figures from a recovery "
+                                       "(.npz from `recover --out`)")
+    pp.add_argument("--recovery", required=True)
+    pp.add_argument("--out-dir", default="report")
+    pp.add_argument("--bands", type=int, nargs="+", default=[0, 24, 48])
+    pp.add_argument("--dpi", type=int, default=110)
+    pp.set_defaults(fn=_cmd_report, device="cpu")
 
     pw = sub.add_parser("sweep", help="baseline evaluation sweep")
     pw.add_argument("--fractions", type=float, nargs="+", default=[0.05, 0.1])

@@ -1,5 +1,14 @@
 """Deep-prior networks (port of ``quantized_spectrum_cartography_tpu/models``)."""
 
+from quantized_spectrum_cartography_tpu_torch.models.dip import (  # noqa: F401
+    DecoderDip,
+)
+from quantized_spectrum_cartography_tpu_torch.models.builders import (  # noqa: F401
+    DictDiscriminator,
+    DictEncoder,
+    GANEncoder,
+    InvalidArchitectureError,
+)
 from quantized_spectrum_cartography_tpu_torch.models.ae import (  # noqa: F401
     Autoencoder,
     AutoencoderLinear,

@@ -7,8 +7,9 @@
 --solver lowrank (default): the bench protocol of ``chip_smoke.py`` (B
 51x51x64 maps, R=2, 50 outer x (5 S + 5 C) Adam steps, rank-10 projection
 every 5).  --solver mle-gan: ``chip_smoke.py``'s MLE-GAN problem, one map
-realizable by a seeded Generator256, 4-bin log quantizer, sigma 5, 10% of
-the entries observed, SolverConfig() defaults, f32 bin bounds.
+realizable by the trained Generator256 (``checkpoints/gan256/final``),
+4-bin log quantizer, sigma 5, 10% of the entries observed, SolverConfig()
+defaults, f32 bin bounds.
 --solver harness: one of the published methods (``--method``, default
 dowjons) of ``baselines.load_pretrained_methods`` on a batch of base-condition
 examples (f=0.05, R=2, 51x51x64; ``--batch``, default 32), as
@@ -31,6 +32,7 @@ from __future__ import annotations
 import argparse
 import json
 import time
+from pathlib import Path
 
 import torch
 from torch.autograd import DeviceType
@@ -38,7 +40,6 @@ from torch.profiler import ProfilerActivity, profile
 
 from quantized_spectrum_cartography_tpu_torch.config import (
     PhysicsConfig, QuantizerConfig, SolverConfig, set_card_numerics)
-from quantized_spectrum_cartography_tpu_torch.models import Generator256
 from quantized_spectrum_cartography_tpu_torch.ops import boundaries as bnd
 from quantized_spectrum_cartography_tpu_torch.ops.lowrank import get_tensor
 from quantized_spectrum_cartography_tpu_torch.ops.quantizer import (
@@ -47,8 +48,12 @@ from quantized_spectrum_cartography_tpu_torch.physics import (
     generate_map_batch, sample_entry_mask)
 from quantized_spectrum_cartography_tpu_torch.solvers import (
     make_generator_apply, recover_lowrank_mle, recover_mle_gan)
+from quantized_spectrum_cartography_tpu_torch.training import (
+    load_checkpoint, load_generator)
 
 MEAN, STD = 0.0045, 0.008
+GAN256 = Path(__file__).resolve().parents[1] / "checkpoints" / "gan256" / \
+    "final"
 
 
 def _device_us(evt) -> float:
@@ -73,8 +78,10 @@ def lowrank_solve(batch):
 
 
 def mle_gan_solve():
-    """One MLE-GAN map at full width, as chip_smoke.py builds it."""
-    gen_apply = make_generator_apply(Generator256(seed=0).to("cuda"))
+    """One MLE-GAN map at full width under the trained Generator256
+    (checkpoints/gan256/final), as chip_smoke.py builds it."""
+    gen_apply = make_generator_apply(*load_generator(
+        load_checkpoint(str(GAN256)), 256, "cuda"))
     gen = torch.Generator(device="cuda").manual_seed(2)
     with torch.no_grad():
         S_true = gen_apply(torch.randn(2, 256, generator=gen, device="cuda"))

@@ -3,6 +3,10 @@
 from quantized_spectrum_cartography_tpu_torch.solvers.base import (  # noqa: F401
     RecoveryResult,
 )
+from quantized_spectrum_cartography_tpu_torch.solvers.dip_solver import (  # noqa: F401
+    recover_dip,
+    recover_dip_tensor,
+)
 from quantized_spectrum_cartography_tpu_torch.solvers.dowjons import (  # noqa: F401
     recover_dowjons,
 )

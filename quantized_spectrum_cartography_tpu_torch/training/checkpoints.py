@@ -247,14 +247,27 @@ _LISTS = {"Conv": "conv", "SNConv": "conv", "ConvTranspose": "convt",
           "BatchNorm": "bn", "Dense": "dense"}
 
 
-def state_dict_from_flax(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+def _map_leaves(tree: Dict[str, Any], fn) -> Dict[str, Any]:
+    return {k: _map_leaves(v, fn) if isinstance(v, dict) else fn(v)
+            for k, v in tree.items()}
+
+
+def state_dict_from_flax(tree: Dict[str, Any],
+                         instance: Optional[int] = None
+                         ) -> Dict[str, torch.Tensor]:
     """state_dict of the port's modules (and, renamed by
     `generator_state_dict_from_flax`, its generators) from a flax
     {"params": ..., "batch_stats": ..., ["spectral_stats": ...]} tree of the
     same module: named submodules (``encoder``, ``mean_head``,
     ``Encoder_0``, ...) keep their names, flax's ``<Layer>_<i>`` become
     ``<list>.<i>``, ``log_gain`` stays a parameter.  Other top-level entries
-    (a VAE's ``latent_dim``, ...) are ignored."""
+    (a VAE's ``latent_dim``, ...) are ignored.  A tree of `jax.vmap`-ed
+    instances (the DIP solver's R decoders) carries a leading instance axis
+    on every leaf; `instance` r takes leaf [r], instance r's module."""
+    if instance is not None:
+        tree = {k: _map_leaves(v, lambda a: np.asarray(a)[instance])
+                for k, v in tree.items()
+                if k in ("params", "batch_stats", "spectral_stats")}
     sd: Dict[str, torch.Tensor] = {}
 
     def walk(params, stats, spectral, prefix):
@@ -295,11 +308,16 @@ def _np(x: torch.Tensor) -> np.ndarray:
     return x.detach().cpu().numpy().astype(np.float32)
 
 
-def flax_from_state_dict(sd: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+def flax_from_state_dict(sd) -> Dict[str, Any]:
     """The flax {"params": ..., "batch_stats": ..., ["spectral_stats":
     ...]} tree (numpy float32) of a state_dict of the port's modules: the
     inverse of `state_dict_from_flax`.  BatchNorm's ``num_batches_tracked``
-    has no flax counterpart and is dropped."""
+    has no flax counterpart and is dropped.  A list of state_dicts (the
+    instances of one module) gives their trees stacked on a leading
+    instance axis, as `jax.vmap` of the module's init does: the inverse of
+    `state_dict_from_flax(tree, instance=r)`."""
+    if isinstance(sd, (list, tuple)):
+        return _stack([flax_from_state_dict(one) for one in sd])
     layers: Dict[Tuple[str, ...], Dict[str, torch.Tensor]] = {}
     for key, value in sd.items():
         *path, leaf = key.split(".")
@@ -341,6 +359,12 @@ def flax_from_state_dict(sd: Dict[str, torch.Tensor]) -> Dict[str, Any]:
             else:                          # a bias, or a bare parameter
                 put("params", names, leaf, _np(value))
     return out
+
+
+def _stack(trees):
+    if isinstance(trees[0], dict):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    return np.stack(trees)
 
 
 # the generator's names where flax's differ: its Dense stem, its one Conv

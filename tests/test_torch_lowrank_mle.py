@@ -178,8 +178,8 @@ def test_unported_encodings_raise(problem, enc):
 
 def test_cli_recover_and_simulate(tmp_path, capsys):
     """The port's CLI on the CPU: one-line JSON like the JAX package's, for
-    every solver (DowJons too, under the default VAE prior); the unported
-    .mat fixture exits with a message."""
+    every solver (DowJons too, under the default VAE prior); a missing
+    .mat fixture raises FileNotFoundError."""
     out = str(tmp_path / "res.npz")
     cli_main(["recover", "--solver", "lowrank", "--iters", "2", "--device",
               "cpu", "--out", out])
@@ -195,6 +195,6 @@ def test_cli_recover_and_simulate(tmp_path, capsys):
     res = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert res["solver"] == "dowjons" and res["iters"] == 2
     assert np.isfinite(res["final_cost"]) and np.isfinite(res["final_nmse"])
-    with pytest.raises(SystemExit, match="not yet ported"):
-        cli_main(["recover", "--fixture", "onebitdata1.mat", "--device",
-                  "cpu"])
+    with pytest.raises(FileNotFoundError, match="onebitdata1.mat"):
+        cli_main(["recover", "--fixture", str(tmp_path / "onebitdata1.mat"),
+                  "--device", "cpu"])

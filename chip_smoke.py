@@ -160,10 +160,30 @@ Phases, each printing one line with its seconds:
                examples), finite SREs and the pooled document's layout;
                the miss protocol (missprob.py) at rho 1% and 10% on 8
                examples: events, miss rates and the false-alarm guard
-               printed, finite SREs; two 4-example draws pooled
-               (missprob_pool_seeds.summed_events): the summed event counts
-               reproduced exactly.  None of the six kernels runs here
-  16. train  - prior training at the JAX configurations' full widths (GAN:
+               printed, finite SREs, and each (method, rho)'s per-example
+               events summing over its valid examples to its counts; two
+               4-example draws pooled (missprob_pool_seeds.summed_events):
+               the summed event counts reproduced exactly.  None of the six
+               kernels runs here
+  16. anchors - the rho = 5% figure anchors (figure_anchors.py) at 8
+               examples of the base condition: nasdac and dowjons from
+               load_pretrained_methods, the per-example map SRE and the
+               per-emitter NAE_S / NAE_C after Hungarian matching (each
+               example's matching a permutation of the emitters), the
+               oracle-S C refit and the two NAE_S floors; every statistic
+               finite; the means against FIGURE_ANCHORS.json printed (not
+               gated at 8 examples).  No kernel launches
+  17. bits   - the 1-to-8-bit ladder (bits_sweep.py) on 64 maps (51x51x64,
+               R=2, per-entry mask 0.1) at its five depths and the
+               unquantized floor, cut from 400 + 2000 steps to BITS_WARM +
+               BITS_ITERS: every depth's NMSE and NMSE_LOG finite, and no
+               kernel launched (plain likelihood, as in JAX); then the
+               bounds pair at the 256-bin point (B=128, K=64, 51x51, R=2,
+               10% mask, linear link, robust numerics) against its plain
+               version at parity's tolerances, a second launch bit for
+               bit, its ms and graph ms beside the bound (W and U read
+               once); its launches counted
+  18. train  - prior training at the JAX configurations' full widths (GAN:
                Generator256, z 256, against the SN discriminator; AE: the
                selu Autoencoder; VAE: latent 64, decoder width 16; AAE:
                z 64; batch 64 each):
@@ -185,7 +205,7 @@ Phases, each printing one line with its seconds:
                    fresh process, its final cost within rtol 1e-3 of
                    main_vae's in-process run: the CLI sets the card's
                    numerics itself
-  17. timing - every kernel's and its plain version's ms (CUDA events over
+  19. timing - every kernel's and its plain version's ms (CUDA events over
                back-to-back calls, in turns plain, kernel, kernel, plain),
                the kernel's device time (graph_ms: TIMING_REPS calls captured
                in one CUDA graph, its replays timed with CUDA events, so the
@@ -197,8 +217,9 @@ cuDNN runs without TF32 and with deterministic algorithms
 (config.set_card_numerics, which the CLI sets too), so the solve
 comparisons measure the likelihood kernels, not convolution atomics.
 The line before the last two is the kernels' JSON record (each kernel's
-launches on the main path, under the scheduler in `serve_launches`, and on
-the fixture path in `fixture_launches`);
+launches on the main path, under the scheduler in `serve_launches`, on
+the fixture path in `fixture_launches`, and the bounds pair's 256-bin point
+in `bits_256bin`);
 then nvidia-smi's
 "name, power.limit"; the last line is {"ok": true, "device": {...}}.  Any
 failure, or running past DEADLINE_S, exits non-zero without that line.
@@ -290,6 +311,9 @@ DIP = dict(lr=1e-3, holdout_frac=0.05, l2_c=0.03, val_ema_decay=0.9,
 # miss protocol at two rhos; two draws pooled)
 PROTOCOL_EXAMPLES, POOL_EXAMPLES = 8, 4
 PROTOCOL_RHOS = (0.01, 0.10)
+# the figure anchors' examples; the ladder's steps (warm, NLL) on the card
+ANCHOR_EXAMPLES = 8
+BITS_WARM, BITS_ITERS = 40, 100
 POOLED_KEYS = {"sre", "sre_std", "sre_median", "nae_s", "nae_c", "miss_prob",
                "false_prob", "miss_count", "peak_count", "false_count",
                "low_count", "valid", "sre_all"}
@@ -1634,6 +1658,16 @@ def protocols(card):
     if not all(math.isfinite(e["sre"]) for ev in events.values()
                for e in ev):
         fail("miss protocol: a non-finite SRE")
+    for m, ev in events.items():
+        for e in ev:
+            pe = e["per_example"]
+            for key in ("miss", "peaks", "false", "lows"):
+                got = sum(x for x, v in zip(pe[key], pe["valid"]) if v)
+                if len(pe[key]) != PROTOCOL_EXAMPLES or got != e[key]:
+                    fail(f"miss protocol: {m} per-example {key} sum to "
+                         f"{got}, the count is {e[key]}")
+    print("protocols miss: the per-example events sum to the counts "
+          "exactly", flush=True)
 
     draws = [{"events": mp.run_draw(harness, POOL_EXAMPLES, s,
                                     PROTOCOL_RHOS)} for s in (0, 1)]
@@ -1646,6 +1680,111 @@ def protocols(card):
                 fail(f"pooling: {m} {key} {pooled[key]} != {want}")
     print(f"protocols pooling of two {POOL_EXAMPLES}-example draws: the "
           "summed event counts reproduced exactly", flush=True)
+
+
+def anchors(card):
+    """The figure-anchor protocol at ANCHOR_EXAMPLES examples: statistics,
+    matchings, diagnostics; no kernel."""
+    import math
+
+    import numpy as np
+
+    from quantized_spectrum_cartography_tpu_torch import figure_anchors as fa
+    from quantized_spectrum_cartography_tpu_torch.baselines import (
+        load_pretrained_methods)
+    from quantized_spectrum_cartography_tpu_torch.baselines.harness import (
+        best_permutation)
+    from quantized_spectrum_cartography_tpu_torch.training.ae_trainer import (
+        load_ae, make_ae_completer)
+
+    methods = load_pretrained_methods(only=fa.METHODS, device=DEVICE)
+    ae = make_ae_completer(*load_ae(ROOT / CHECKPOINTS["ae_completion"],
+                                    "selu", DEVICE))
+    with open(ROOT / "FIGURE_ANCHORS.json") as f:
+        ref = json.load(f)["methods"]
+    reset_counts()
+    t = time.perf_counter()
+    d = fa.draw(methods, ANCHOR_EXAMPLES, 0, DEVICE)
+    diag = fa.diagnostics(d["hp"], ae)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launched = {k: v for k, v in kernel_counts().items() if v}
+    S_true = d["hp"].S_true.cpu().numpy()
+    R = S_true.shape[1]
+    for name in fa.METHODS:
+        raw, S_hat = d["raw"][name], d["outputs"][name]["S_hat"].cpu().numpy()
+        perms = [sorted(best_permutation(S_hat[b], S_true[b]).tolist())
+                 for b in range(ANCHOR_EXAMPLES)]
+        if any(p != list(range(R)) for p in perms):
+            fail(f"anchors: {name}'s matching is not a permutation")
+        if not all(math.isfinite(v) for k in raw for v in raw[k]):
+            fail(f"anchors: {name} has a non-finite statistic")
+        row = fa.method_row(name, raw["sre_map"], raw["nae_s"], raw["nae_c"])
+        g = fa.gate(row, ref[name], raw)
+        print(f"anchors {name:8s} {ANCHOR_EXAMPLES} examples: map SRE mean "
+              f"{g['sre_map']['port']:.4f} (JAX {g['sre_map']['jax']:.4f}, "
+              f"z {g['sre_map']['z']}), NAE_C {g['nae_c']['port']:.4f} (JAX "
+              f"{g['nae_c']['jax']:.4f}, z {g['nae_c']['z']}), NAE_S "
+              f"{g['nae_s']['port']:.4f} (JAX {g['nae_s']['jax']:.4f}); "
+              f"{d['seconds'][name]:.2f} s (printed, not gated)", flush=True)
+    for k, v in diag.items():
+        st = [x for x in v.values() if isinstance(x, dict)][0]
+        if not (st["n"] == ANCHOR_EXAMPLES * R and np.isfinite(st["mean"])):
+            fail(f"anchors: {k} {st}")
+        print(f"anchors {k}: {st}", flush=True)
+    print(f"anchors: {wall:.2f} s on {card}; kernels launched {launched}",
+          flush=True)
+    if launched:
+        fail(f"anchors launched kernels: {launched}")
+
+
+def bits(card):
+    """The bit ladder at BITS_WARM + BITS_ITERS steps (no kernel), then
+    the bounds pair at the 256-bin point; returns that point's record with
+    its launches."""
+    import math
+
+    from quantized_spectrum_cartography_tpu_torch import bits_sweep as bs
+
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    T, mask = bs.problem_set(gen, bs.BATCH, device=DEVICE)
+    noise = torch.randn(T.shape, generator=gen, device=DEVICE)
+    S0, C0 = bs.initial_factors(gen, bs.BATCH, *T.shape[1:], DEVICE)
+    reset_counts()
+    t = time.perf_counter()
+    res = bs.ladder(T, mask, noise, S0, C0, BITS_WARM, BITS_ITERS,
+                    log=lambda *a: print("bits", *a, flush=True))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launched = {k: v for k, v in kernel_counts().items() if v}
+    print(f"bits: five depths and the floor at {bs.BATCH} maps, "
+          f"{BITS_WARM} + {BITS_ITERS} steps, {wall:.2f} s on {card}; "
+          f"kernels launched {launched}", flush=True)
+    bad = [k for k, r in res.items()
+           if not (math.isfinite(r["nmse_mean"])
+                   and math.isfinite(r["nmse_log_mean"]))]
+    if bad or launched:
+        fail(f"bits: non-finite depths {bad}, kernels launched {launched}")
+    reset_counts()
+    k = bs.kernel_point(T[0], mask[0], gen)
+    counts = kernel_counts()
+    k["launches"] = {n: counts[n] for n in ("quantized_nll_fwd",
+                                             "quantized_nll_bwd")}
+    print(f"bits 256-bin bounds pair B={k['batch']}, K={k['K']}, P={k['P']}"
+          f", {k['observed_entries']} entries observed: value rel "
+          f"{k['value_rel']:.2e}, dS {k['dS_rel_of_max']:.2e}, dC "
+          f"{k['dC_rel_of_max']:.2e} of max; second launch bitwise "
+          f"{k['second_launch_bitwise']}; fwd {k['fwd_ms']:.4f} ms (graph "
+          f"{k['fwd_graph_ms']:.4f}), bwd {k['bwd_ms']:.4f} ms (graph "
+          f"{k['bwd_graph_ms']:.4f}), bound {k['bound_ms']:.4f} ms "
+          f"({k['bound_by']}); launches {k['launches']}", flush=True)
+    if not (k["parity"] and k["second_launch_bitwise"]):
+        fail("the bounds pair disagrees with its plain version at the "
+             "256-bin point, or with itself")
+    others = {n: v for n, v in counts.items() if v and n not in k["launches"]}
+    if others or not all(k["launches"].values()):
+        fail(f"bits: the 256-bin point launched {counts}")
+    return k
 
 
 def initial_state(kind):
@@ -2091,6 +2230,8 @@ def main():
     launches_fixture = phase("fixture", lambda: fixture(card))
     phase("dip", lambda: dip(card))
     phase("protocols", lambda: protocols(card))
+    phase("anchors", lambda: anchors(card))
+    point_256 = phase("bits", lambda: bits(card))
     launches_train = phase("train", lambda: train(card, vae_cost))
     ms, bounds, ms_lr, bounds_lr = phase(
         "timing", lambda: timing(inputs_1bit, inputs_gan, inputs_lr))
@@ -2109,6 +2250,15 @@ def main():
             "train_recover_launches": launches_train.get(name, 0),
             "fixture_launches": launches_fixture[name],
         }
+        if name in ("quantized_nll_fwd", "quantized_nll_bwd"):
+            d = name[-3:]
+            rec["bits_256bin"] = {
+                "launches": point_256["launches"][name],
+                "max_abs_err": point_256["max_abs_err"],
+                "ms": point_256[f"{d}_ms"],
+                "graph_ms": point_256[f"{d}_graph_ms"],
+                "bound_ms": point_256["bound_ms"],
+                "bound_by": point_256["bound_by"]}
         if name in ORDINAL:
             rec["lowrank_b256"] = {
                 "launches": launches_lr[name], "ms": ms_lr[name][0],

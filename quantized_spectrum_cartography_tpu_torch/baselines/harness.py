@@ -393,8 +393,11 @@ class BatchedHarness:
         seed: int = 0,
     ) -> Dict[str, Dict[str, Dict[str, float]]]:
         """`run_conditions`'s result structure, plus the raw detection event
-        counts (miss_count / peak_count / false_count / low_count) and the
-        per-example SREs (sre_all)."""
+        counts (miss_count / peak_count / false_count / low_count), the
+        per-example SREs (sre_all), and the per-example events before the
+        validity cap (miss_all / peak_all / false_all / low_all, with the
+        validity flags valid_all): the counts are their sums over the valid
+        examples."""
         out: Dict[str, Dict[str, Dict[str, float]]] = {}
         for ci, cond in enumerate(conditions):
             base = seed * 100_000 + ci * 1_000
@@ -447,6 +450,9 @@ class BatchedHarness:
         false = int(f_[valid].sum())
         lows = int(l_[valid].sum())
         sre_valid = s[valid]
+        per_example = {f"{k}_all": [int(x) for x in v] for k, v in
+                       (("miss", m_), ("peak", p_), ("false", f_),
+                        ("low", l_))}
         return {
             "sre": float(sre_valid.mean()) if sre_valid.size else float("nan"),
             "nae_s": (float(np.mean(nae_s_list)) if nae_s_list
@@ -460,6 +466,8 @@ class BatchedHarness:
             "false_count": false, "low_count": lows,
             "valid": int(valid.sum()),
             "sre_all": [float(x) for x in s],
+            **per_example,
+            "valid_all": [bool(v) for v in valid],
         }
 
 

@@ -56,6 +56,7 @@ from quantized_spectrum_cartography_tpu_torch.published_sre import (
     PUBLISHED,
     device_info,
 )
+from quantized_spectrum_cartography_tpu_torch.utils.profiling import sync_device
 
 ROOT = Path(__file__).resolve().parents[1]
 AXES = ("fraction", "num_emitters", "shadow_sigma", "xc", "snr")
@@ -78,23 +79,18 @@ def harnesses(device: str, polish: dict, log_fn=None):
     return stack, plain
 
 
-def _sync(device):
-    if torch.device(device).type == "cuda":
-        torch.cuda.synchronize(device)
-
-
 def run_condition(stack, plain, cond, examples: int, seed: int, device):
     """One condition through both registries: (the draw's row with each
     method's spread and the stack deltas, wall seconds, each method's
     seconds)."""
     label = cond.label()
-    _sync(device)
+    sync_device(device)
     t0 = time.perf_counter()
     row = add_spread(stack.run((cond,), num_examples=examples,
                                seed=seed)[label])
     row.update(add_spread(plain.run((cond,), num_examples=examples,
                                     seed=seed)[label]))
-    _sync(device)
+    sync_device(device)
     wall = time.perf_counter() - t0
     seconds = {**stack.seconds[label], **plain.seconds[label]}
     return add_stack_deltas(row), wall, seconds

@@ -10,7 +10,9 @@ sampling for DeepComp, Nasdac and DowJons
 examples with the event rules at `:514-544` and the (total+1) denominators
 at `:549-554`.  One `BatchedHarness` batch of `--examples` examples per rho
 through the three methods with the gated polish settings; per method the
-curve next to the published row, the raw events, and the false-alarm guard
+curve next to the published row, the raw events with each example's own
+(the port's harness keeps them; the JAX package's does not), and the
+false-alarm guard
 (`missprob_tpu.py:122-157`): each factored method's false-alarm rate at
 every rho at most max(1.2 x, + 0.01) DeepComp's.  Draws of several seeds
 pool with ``missprob_pool_seeds``.
@@ -19,6 +21,7 @@ pool with ``missprob_pool_seeds``.
 from __future__ import annotations
 
 import argparse
+import json
 import os
 import time
 from typing import Dict, List
@@ -39,22 +42,33 @@ PUBLISHED = {
 }
 METHODS = ("deepcomp", "nasdac", "dowjons")
 RHOS = (0.01, 0.025, 0.05, 0.075, 0.10)
+# the rhos whose dowjons misses --missed-from keeps (where the port's
+# pooled rates sat above JAX's)
+MISSED_RHOS = (0.075, 0.10)
 FALSE_RATIO, FALSE_ABS = 1.2, 0.01
 
 
+def _events(st: dict) -> dict:
+    """One (method, rho)'s events: the counts, the mean SRE and the
+    per-example events (`per_example`: miss / peaks / false / lows counts
+    and the validity flags, one entry per example; the counts are their
+    sums over the valid examples)."""
+    return {"miss": st["miss_count"], "peaks": st["peak_count"],
+            "false": st["false_count"], "lows": st["low_count"],
+            "sre": st["sre"],
+            "per_example": {"miss": st["miss_all"], "peaks": st["peak_all"],
+                            "false": st["false_all"], "lows": st["low_all"],
+                            "valid": st["valid_all"]}}
+
+
 def run_draw(harness, examples: int, seed: int, rhos=RHOS) -> Dict:
-    """{method: [per-rho events {miss, peaks, false, lows, sre}]} of one
-    batch per rho."""
+    """{method: [per-rho events]} of one batch per rho (`_events`)."""
     from quantized_spectrum_cartography_tpu_torch.baselines import (
         condition_grid)
 
     conds = condition_grid("fraction", rhos)
     out = harness.run(conds, num_examples=examples, seed=seed)
-    return {m: [{"miss": out[c.label()][m]["miss_count"],
-                 "peaks": out[c.label()][m]["peak_count"],
-                 "false": out[c.label()][m]["false_count"],
-                 "lows": out[c.label()][m]["low_count"],
-                 "sre": out[c.label()][m]["sre"]} for c in conds]
+    return {m: [_events(out[c.label()][m]) for c in conds]
             for m in harness.methods}
 
 
@@ -100,7 +114,7 @@ def false_guard(events: Dict[str, List[dict]]) -> dict:
 def draw_document(events, examples: int, config: dict, wall: float,
                   device: str) -> dict:
     """One draw's document in the layout of the JAX package's
-    MISSPROB.json."""
+    MISSPROB.json, each event entry with its per-example events."""
     ours = curves(events)
     return {
         "protocol": "joint_opt_ae.m:514-544 events, :549-554 denominators",
@@ -120,6 +134,42 @@ def draw_document(events, examples: int, config: dict, wall: float,
     }
 
 
+def missed_problems(doc: dict, method: str, rhos, device) -> Dict:
+    """The problems of one draw document where `method` missed a peak
+    event, at each rho of `rhos`: regenerated as BatchedHarness.run draws
+    them (condition ci of the draw's rhos from a generator seeded with
+    seed * 100000 + ci * 1000, on the device the draw ran on), so a problem
+    the port missed on the card can be run again elsewhere.  Returns numpy
+    arrays stacked over the kept examples, with their rho, draw seed,
+    index and misses."""
+    from quantized_spectrum_cartography_tpu_torch.baselines import (
+        BatchedHarness, condition_grid)
+    from quantized_spectrum_cartography_tpu_torch.baselines.harness import (
+        make_problem)
+
+    harness = BatchedHarness({}, device=device)
+    seed, n = doc["config"]["seed"], doc["num_examples"]
+    keys = ("T_true", "T_noisy", "S_true", "C_true", "peaks", "Om")
+    out = {k: [] for k in keys + ("rho", "seed", "index", "misses")}
+    for ci, cond in enumerate(condition_grid("fraction", doc["rhos"])):
+        misses = doc["events"][method][ci]["per_example"]["miss"]
+        idx = [i for i, m in enumerate(misses) if m > 0]
+        if cond.fraction not in rhos or not idx:
+            continue
+        gen = torch.Generator(device=device).manual_seed(
+            seed * 100_000 + ci * 1_000)
+        hp = make_problem(gen, cond, harness.physics, n, device,
+                          harness._cholesky(cond.xc))
+        for k in keys:
+            out[k].append(getattr(hp, k)[idx].cpu().numpy())
+        out["rho"] += [cond.fraction] * len(idx)
+        out["seed"] += [seed] * len(idx)
+        out["index"] += idx
+        out["misses"] += [misses[i] for i in idx]
+    return {k: (np.concatenate(v) if k in keys else np.asarray(v))
+            for k, v in out.items() if len(v)}
+
+
 def main(argv=None):
     from quantized_spectrum_cartography_tpu_torch.baselines import (
         BatchedHarness, load_pretrained_methods, pretrained)
@@ -135,7 +185,23 @@ def main(argv=None):
                    default=POLISH["polish_gamma"])
     p.add_argument("--polish-peaks", type=int,
                    default=POLISH["polish_peaks_extra"])
+    p.add_argument("--missed-from", nargs="+", metavar="DRAW_JSON",
+                   help="instead of a draw: save to --out (npz) the "
+                        "problems of these draws where dowjons missed at "
+                        "rho 7.5%% and 10%%")
     args = p.parse_args(argv)
+    if args.missed_from:
+        parts = []
+        for path in args.missed_from:
+            with open(path) as f:
+                parts.append(missed_problems(json.load(f), "dowjons",
+                                             MISSED_RHOS, args.device))
+        parts = [d for d in parts if d]
+        np.savez_compressed(args.out, **{
+            k: np.concatenate([d[k] for d in parts]) for k in parts[0]})
+        print(f"wrote {args.out}: {sum(len(d['index']) for d in parts)} "
+              f"problems", flush=True)
+        return
     t0 = time.time()
 
     def log(*a):

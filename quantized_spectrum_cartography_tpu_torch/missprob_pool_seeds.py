@@ -13,7 +13,9 @@ draws (`--reference`, its five MISSPROB*.json): per method and rho,
 |p_port - p_jax| <= 3 sqrt(p(1 - p)(1/N_port + 1/N_jax)), p the two draws'
 misses over their peaks together, N each side's summed peak count; and the
 same at the level of the draws (`draw_level`), whose spread shows how far
-the binomial band understates the draws' own.
+the binomial band understates the draws' own; and a cluster-robust band
+(`cluster_band`) from the port's per-example events, which treats each
+example as a cluster of peak events.
 """
 
 from __future__ import annotations
@@ -134,6 +136,57 @@ def draw_level(port: Sequence[dict], ref: Sequence[dict]) -> List[dict]:
     return rows
 
 
+CLUSTER_ASSUMPTION = (
+    "JAX's MISSPROB*.json keep no per-example events, so JAX's variance is "
+    "its binomial variance times the port's design effect at the same "
+    "method and rho: the two sides are assumed to cluster their misses "
+    "alike")
+
+
+def cluster_band(port: Sequence[dict], ref: Sequence[dict]) -> List[dict]:
+    """Per method and rho, with examples as the clusters: the port's ratio
+    estimator p = sum m_i / sum n_i over the valid examples of every draw
+    (m_i misses of n_i peak events), its variance sum_i (m_i - p n_i)^2 /
+    (sum_i n_i)^2, and the design effect deff = that variance over the
+    binomial p (1 - p) / sum n_i; JAX's rate from its summed events, its
+    variance p_j (1 - p_j) / N_j * deff (CLUSTER_ASSUMPTION);
+    z = (p - p_j) / sqrt(var + var_j), in band when |z| <= 3."""
+    rows = []
+    for m in PUBLISHED:
+        ej = summed_events(ref, m)
+        for i in range(len(ej["miss"])):
+            mi, ni = [], []
+            for d in port:
+                pe = d["events"][m][i]["per_example"]
+                for a, b, v in zip(pe["miss"], pe["peaks"], pe["valid"]):
+                    if v:
+                        mi.append(a)
+                        ni.append(b)
+            mi, ni = np.asarray(mi, np.float64), np.asarray(ni, np.float64)
+            n = ni.sum()
+            p = mi.sum() / n
+            var = float(((mi - p * ni) ** 2).sum() / n ** 2)
+            binom = p * (1 - p) / n
+            deff = var / binom if binom > 0 else 1.0
+            n_j = ej["peaks"][i]
+            p_j = ej["miss"][i] / n_j
+            var_j = p_j * (1 - p_j) / n_j * deff
+            se = math.sqrt(var + var_j)
+            z = ((p - p_j) / se if se > 0
+                 else 0.0 if p == p_j else math.copysign(math.inf, p - p_j))
+            rows.append({"method": m, "rho_index": i,
+                         "port": round(float(p), 4),
+                         "jax": round(float(p_j), 4),
+                         "examples": int(mi.size), "n_port": int(n),
+                         "n_jax": int(n_j),
+                         "design_effect": round(float(deff), 3),
+                         "se_port": round(math.sqrt(var), 5),
+                         "se_jax": round(math.sqrt(var_j), 5),
+                         "z": round(float(z), 3),
+                         "in_band": bool(abs(z) <= Z_LIMIT)})
+    return rows
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("inputs", nargs="+", help="the port's per-seed draws")
@@ -176,6 +229,16 @@ def main(argv=None):
                     "sd",
             "rows": draws,
             "all_in_band": all(r["in_band"] for r in draws)}}
+    if all("per_example" in e for d in docs for ev in d["events"].values()
+           for e in ev):
+        cluster = cluster_band(docs, ref)
+        out["comparison"]["cluster_robust"] = {
+            "rule": "|z| <= 3, z = (p_port - p_jax) / sqrt(var_port + "
+                    "var_jax), p = misses / peaks; var_port = sum_i (m_i - "
+                    "p n_i)^2 / (sum_i n_i)^2 over the port's examples",
+            "assumption": CLUSTER_ASSUMPTION,
+            "rows": cluster,
+            "all_in_band": all(r["in_band"] for r in cluster)}
     dump_json(out, args.out)
     for m, row in out["pooled"].items():
         print(m, "pooled", row["miss_rates"], "PASS" if row["pass"]
@@ -188,6 +251,10 @@ def main(argv=None):
     for r in draws:
         print(f"{r['method']:9s} rho#{r['rho_index']} draw-level t "
               f"{r['t']:+.2f} overdispersion {r['overdispersion']} "
+              f"{'ok' if r['in_band'] else 'OUT'}")
+    for r in out["comparison"].get("cluster_robust", {}).get("rows", []):
+        print(f"{r['method']:9s} rho#{r['rho_index']} cluster-robust z "
+              f"{r['z']:+.2f} design effect {r['design_effect']} "
               f"{'ok' if r['in_band'] else 'OUT'}")
     print(f"wrote {args.out}; binomial bands all in: "
           f"{out['comparison']['all_in_band']}; draw level all in: "

@@ -22,11 +22,12 @@ def nmse(T: torch.Tensor, T_target: torch.Tensor, dim=None) -> torch.Tensor:
 
 
 def nmse_log(T: torch.Tensor, T_target: torch.Tensor,
-             offset: float) -> torch.Tensor:
-    """NMSE after the log link log(x + offset)."""
+             offset: float, dim=None) -> torch.Tensor:
+    """NMSE after the log link log(x + offset), over `dim` (all axes if
+    None)."""
     Tl = torch.log(T + offset)
     Tt = torch.log(T_target + offset)
-    return _fro(Tl - Tt) / _fro(Tt)
+    return _fro(Tl - Tt, dim) / _fro(Tt, dim)
 
 
 def sre(X_hat: torch.Tensor, X_true: torch.Tensor, dim=None) -> torch.Tensor:

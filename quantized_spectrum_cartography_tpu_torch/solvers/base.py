@@ -10,6 +10,7 @@ layout.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
@@ -39,6 +40,14 @@ def adam_init(param: torch.Tensor) -> AdamState:
     """optax.adam's initial state: count 0 (int32), zero moments."""
     return (torch.zeros((), dtype=torch.int32, device=param.device),
             torch.zeros_like(param), torch.zeros_like(param))
+
+
+def cosine_lr(lr: float, count: int, steps: int, alpha: float) -> float:
+    """optax.cosine_decay_schedule(lr, steps, alpha) at update `count`
+    (0 for the first update), in float32 as optax computes it."""
+    c = torch.tensor(float(min(count, steps)), dtype=torch.float32)
+    cosine = 0.5 * (1 + torch.cos(math.pi * c / float(steps)))
+    return float(lr * ((1 - alpha) * cosine + alpha))
 
 
 def value_and_grad(loss_fn: Callable[..., torch.Tensor], *params):

@@ -18,7 +18,6 @@ are.
 
 from __future__ import annotations
 
-import math
 from typing import List, Optional, Sequence, Tuple
 
 import torch
@@ -39,6 +38,7 @@ from quantized_spectrum_cartography_tpu_torch.ops.metrics import nmse
 from quantized_spectrum_cartography_tpu_torch.solvers.base import (
     adam_init,
     adam_step,
+    cosine_lr,
 )
 
 
@@ -46,14 +46,6 @@ def _decoders(generator, n, z_dim, device) -> List[DecoderDip]:
     """`n` decoders initialized as flax initializes the JAX module."""
     return [flax_init_(DecoderDip(z_dim).to(device), generator)
             for _ in range(n)]
-
-
-def _cosine_lr(lr: float, count: int, steps: int, alpha: float = 0.1):
-    """optax.cosine_decay_schedule(lr, steps, alpha) at update `count`
-    (0 for the first update), in float32 as optax computes it."""
-    c = torch.tensor(float(min(count, steps)), dtype=torch.float32)
-    cosine = 0.5 * (1 + torch.cos(math.pi * c / float(steps)))
-    return float(lr * ((1 - alpha) * cosine + alpha))
 
 
 class _Adam:
@@ -213,8 +205,8 @@ def recover_dip_tensor(
             loss = loss_fn(_slfs(decoders, zs), C)
             grads = torch.autograd.grad(loss, params + [C])
             C.requires_grad_(False)
-        opt.step(_cosine_lr(lr, t, steps) if lr_schedule == "cosine" else lr,
-                 grads)
+        opt.step(cosine_lr(lr, t, steps, 0.1) if lr_schedule == "cosine"
+                 else lr, grads)
         with torch.no_grad():
             C.clamp_(min=0.0)                         # nonneg projection
             with frozen_stats(nets):

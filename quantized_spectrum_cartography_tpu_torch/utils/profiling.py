@@ -28,6 +28,12 @@ def _sync():
         torch.cuda.synchronize()
 
 
+def sync_device(device) -> None:
+    """Wait for `device`'s queued work (a no-op on the CPU)."""
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
 @contextlib.contextmanager
 def trace(path: str):
     """Profile the block with ``torch.profiler`` (host activity, and the

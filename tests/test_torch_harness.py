@@ -167,9 +167,29 @@ def test_registries():
 
 # -- the accumulation rules -------------------------------------------------
 
+PER_EXAMPLE = ("miss_all", "peak_all", "false_all", "low_all", "valid_all")
+
+
+def same_as_jax(got: dict, want: dict, counts, s, cap):
+    """JAX's statistics exactly, plus the port's per-example events: the
+    counts as given, the validity flags of the cap, and the sums over the
+    valid examples equal to the aggregate counts."""
+    assert set(got) == set(want) | set(PER_EXAMPLE)
+    same({k: got[k] for k in want}, want)
+    valid = np.ones(len(s), bool) if cap is None else np.asarray(s) < cap
+    assert got["valid_all"] == valid.tolist()
+    for key, c in zip(("miss", "peak", "false", "low"), counts):
+        assert got[f"{key}_all"] == c.tolist()
+        agg = "peak_count" if key == "peak" else (
+            "low_count" if key == "low" else f"{key}_count")
+        assert sum(x for x, v in zip(got[f"{key}_all"], valid) if v) \
+            == got[agg]
+
+
 def test_accumulate_matches_jax():
     """_accumulate on identical arrays: validity cap (2 of 6 over it),
-    permutation-matched NAE, event counts, (total+1) denominators."""
+    permutation-matched NAE, event counts, (total+1) denominators; the
+    port's per-example events beside them."""
     rng = np.random.default_rng(5)
     B, R = 6, 3
     s = np.asarray([0.5, 3.5, 1.0, 7.0, 0.2, 2.9])
@@ -185,7 +205,7 @@ def test_accumulate_matches_jax():
             name, cond, res, arrs, s, *counts)
         got = th.BatchedHarness({}, device="cpu")._accumulate(
             name, cond, {k: t(v) for k, v in res.items()}, arrs, s, *counts)
-        same(got, want)
+        same_as_jax(got, want, counts, s, th.DEFAULT_VALIDITY_CAPS.get(name))
     assert got["valid"] == 6 and want["miss_prob"] == (
         counts[0].sum() / (counts[1].sum() + 1))
     res.pop("S_hat")
@@ -193,7 +213,7 @@ def test_accumulate_matches_jax():
         "btd", cond, res, arrs, s, *counts)
     got = th.BatchedHarness({}, device="cpu")._accumulate(
         "btd", cond, res, arrs, s, *counts)
-    same(got, want)
+    same_as_jax(got, want, counts, s, 3.0)
     assert want["valid"] == 4 and np.isnan(got["nae_s"])
 
 

@@ -1,0 +1,11 @@
+"""Share of the traced stretch in which no operation ran on the device: 1 -
+(union of the device operations' intervals) / (the stretch)."""
+
+UNIT, LAYER, MOVES = "%", "device", "s_per_map"
+
+
+def read(ctx):
+    t = ctx.trace
+    if t is None or t.window_s <= 0 or not t.device:
+        return None
+    return 100.0 * (1.0 - t.busy_s() / t.window_s)

@@ -1,0 +1,16 @@
+"""The whole solve's share of the chip's float32 peak (67 TFLOP/s, no tensor
+cores: TF32 is off): its operations counted from shapes
+(`roofline.lowrank_solve`: the likelihood passes, Adam, the projection)
+over the traced stretch's wall time."""
+
+from port_bench.roofline import PEAK_F32_FLOP_S
+
+UNIT, LAYER, MOVES = "%", "whole step", "maps_per_s"
+
+
+def read(ctx):
+    t = ctx.trace
+    if t is None or not ctx.work or t.window_s <= 0:
+        return None
+    return 100.0 * ctx.work["flops"] * ctx.units / (t.window_s
+                                                    * PEAK_F32_FLOP_S)

@@ -720,9 +720,9 @@ def serve():
     sched = RecoveryScheduler(solver, batch_size=SERVE_BATCH,
                               max_wait_ms=20.0, pipeline_depth=3,
                               drain_threads=2, device=DEVICE)
-    res_open, sub, done, _ = sb.run_stream(sched, payloads[:SERVE_OPEN], gaps)
+    res_open, due, done, _ = sb.run_stream(sched, payloads[:SERVE_OPEN], gaps)
     sched.shutdown()
-    lat = sb.latency_summary(done - sub)
+    lat = sb.latency_summary(done - due)
     print(f"serve: raw {raw:.2f} maps/s, closed loop {closed:.2f} maps/s = "
           f"{closed / raw:.4f} of raw; open loop of {SERVE_OPEN} at "
           f"{OPEN_FRAC} of raw: p50 {lat['latency_p50_s']:.3f} s, p95 "

@@ -20,25 +20,51 @@ kernels and serialize the pipeline.  So on the card:
   on that event (and on nothing the next batch enqueues);
 - a drain thread waits for that batch's copy event, and nothing else,
   before it resolves the batch's futures.
+
+Spans (`utils.tracing`), keyed by the batch's id: ``qsc.scheduler.collect``
+(from the batch's first request taken to the batch closed),
+``qsc.scheduler.stack``, ``qsc.scheduler.solve`` (the solver's call) and
+``qsc.scheduler.download`` (the copies enqueued) on the dispatch thread,
+``qsc.scheduler.drain`` (the copy wait and the futures resolved) on a
+drain thread.  Each request, keyed by its id and parented by its batch's
+solve span, gets three marks as it resolves: ``qsc.request.queue`` (submit
+to its batch's stack), ``qsc.request.result`` (the solver's return to its
+future resolved) and ``qsc.request`` (submit to resolved;
+``qsc.request.failed`` where it failed).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import queue
 import threading
 import time
 from concurrent.futures import Future
-from typing import Callable, Dict, List
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
+
+from quantized_spectrum_cartography_tpu_torch.utils import tracing
 
 
 @dataclasses.dataclass
 class _Request:
     payload: Dict[str, np.ndarray]
     future: Future
+    rid: int
+    submit_ns: int
+
+
+@dataclasses.dataclass
+class _Stamps:
+    """A batch's span ends the drain thread needs for its requests' marks
+    (None: recording was off)."""
+    bid: int
+    stack_ns: Optional[int] = None
+    solve_id: Optional[int] = None
+    solved_ns: Optional[int] = None
 
 
 class RecoveryScheduler:
@@ -83,13 +109,14 @@ class RecoveryScheduler:
         self.batches_dispatched = 0
         self.maps_completed = 0
         self.solve_seconds: List[float] = []
+        self._rids = itertools.count()
         self._thread = threading.Thread(target=self._loop, daemon=True)
         self._thread.start()
 
     def submit(self, payload: Dict[str, np.ndarray]) -> Future:
         """Enqueue one map recovery; resolves to its result dict."""
         f: Future = Future()
-        self._q.put(_Request(payload, f))
+        self._q.put(_Request(payload, f, next(self._rids), time.time_ns()))
         return f
 
     def shutdown(self, wait: bool = True):
@@ -100,19 +127,20 @@ class RecoveryScheduler:
 
     # ------------------------------------------------------------------
 
-    def _collect(self) -> List[_Request]:
+    def _collect(self, bid: int) -> List[_Request]:
         reqs: List[_Request] = []
         try:
             reqs.append(self._q.get(timeout=0.1))
         except queue.Empty:
             return reqs
-        t0 = time.monotonic()
-        while (len(reqs) < self._batch
-               and (time.monotonic() - t0) < self._max_wait):
-            try:
-                reqs.append(self._q.get(timeout=0.005))
-            except queue.Empty:
-                pass
+        with tracing.span("qsc.scheduler.collect", key=bid):
+            t0 = time.monotonic()
+            while (len(reqs) < self._batch
+                   and (time.monotonic() - t0) < self._max_wait):
+                try:
+                    reqs.append(self._q.get(timeout=0.005))
+                except queue.Empty:
+                    pass
         return reqs
 
     def _stack(self, reqs: List[_Request]) -> Dict[str, torch.Tensor]:
@@ -148,23 +176,29 @@ class RecoveryScheduler:
             item = inflight.get()
             if item is None:
                 return
-            reqs, out, host, copied, err = item
+            reqs, stamps, out, host, copied, err = item
             del item
             try:
-                if err is not None:
-                    raise err
-                if copied is not None:
-                    copied.synchronize()    # this batch's copies only
-                del out         # the device results may be reused now
-                rows = {k: v.numpy() for k, v in host.items()}
-                for i, r in enumerate(reqs):
-                    r.future.set_result({k: v[i] for k, v in rows.items()})
+                with tracing.span("qsc.scheduler.drain", key=stamps.bid):
+                    if err is not None:
+                        raise err
+                    if copied is not None:
+                        copied.synchronize()    # this batch's copies only
+                    del out     # the device results may be reused now
+                    rows = {k: v.numpy() for k, v in host.items()}
+                    for i, r in enumerate(reqs):
+                        resolved = time.time_ns()
+                        r.future.set_result({k: v[i]
+                                             for k, v in rows.items()})
+                        _request_marks(r, stamps, resolved)
                 with self._count_lock:
                     self.maps_completed += len(reqs)
             except Exception as e:  # noqa: BLE001 -- resolves the futures
                 for r in reqs:
                     if not r.future.done():
                         r.future.set_exception(e)
+                        _request_marks(r, stamps, time.time_ns(),
+                                       failed=True)
             finally:
                 slots.release()
 
@@ -178,23 +212,34 @@ class RecoveryScheduler:
                     for _ in range(self._drains)]
         for d in drainers:
             d.start()
+        bid = 0
         try:
             while not self._stop.is_set():
-                reqs = self._collect()
+                reqs = self._collect(bid)
                 if not reqs:
                     continue
                 slots.acquire()
+                stamps = _Stamps(bid)
                 t0 = time.perf_counter()
                 try:
-                    out = self._solver(self._stack(reqs))
+                    with tracing.span("qsc.scheduler.stack", key=bid) as sp:
+                        stacked = self._stack(reqs)
+                    stamps.stack_ns = sp.start_ns
+                    with tracing.span("qsc.scheduler.solve", key=bid) as sp:
+                        out = self._solver(stacked)
+                    stamps.solve_id, stamps.solved_ns = sp.id, sp.end_ns
+                    del stacked     # the inputs are not held past the solve
                     self.solve_seconds.append(time.perf_counter() - t0)
                     # `out` stays referenced until the batch is drained, so
                     # the allocator cannot hand its memory to the next
                     # batch while the side stream still copies it
-                    inflight.put((reqs, out, *self._download(out), None))
+                    with tracing.span("qsc.scheduler.download", key=bid):
+                        inflight.put((reqs, stamps, out,
+                                      *self._download(out), None))
                 except Exception as e:  # noqa: BLE001 -- to the futures
-                    inflight.put((reqs, None, None, None, e))
+                    inflight.put((reqs, stamps, None, None, None, e))
                 self.batches_dispatched += 1
+                bid += 1
         finally:
             for _ in drainers:
                 inflight.put(None)
@@ -207,3 +252,20 @@ class RecoveryScheduler:
                 except queue.Empty:
                     break
                 r.future.set_exception(err)
+                tracing.mark("qsc.request.failed", r.submit_ns,
+                             time.time_ns(), key=r.rid)
+
+
+def _request_marks(r: _Request, stamps: _Stamps, resolved_ns: int,
+                   failed: bool = False) -> None:
+    """A resolved request's marks (module docstring), each of them only
+    where its ends were stamped."""
+    parent = stamps.solve_id
+    if stamps.stack_ns is not None:
+        tracing.mark("qsc.request.queue", r.submit_ns, stamps.stack_ns,
+                     key=r.rid, parent_id=parent)
+    if stamps.solved_ns is not None:
+        tracing.mark("qsc.request.result", stamps.solved_ns, resolved_ns,
+                     key=r.rid, parent_id=parent)
+    tracing.mark("qsc.request.failed" if failed else "qsc.request",
+                 r.submit_ns, resolved_ns, key=r.rid, parent_id=parent)

@@ -20,8 +20,10 @@ configuration's full width, batch 64, from flax's initial weights, as
 Runs the solve once to warm up, once timed, then once under
 ``torch.profiler``.  Prints one JSON line: the card, the wall seconds of the
 timed solve (and of the profiled one, which the profiler slows on the host),
-the summed device time of the profiled solve's kernels and their share of
-the timed wall time (the device-busy share; the rest is the host issuing
+the host ms of each span the timed solve recorded (``utils.tracing``; the
+low-rank solver's S steps, C steps and projections), the summed device time
+of the profiled solve's kernels, the share of the profiled solve's wall time
+in which a kernel ran (the device-busy share; the rest is the host issuing
 work), the kernel launches, and the kernels and host operators that take
 the most time.
 Needs a CUDA device.
@@ -50,6 +52,7 @@ from quantized_spectrum_cartography_tpu_torch.solvers import (
     make_generator_apply, recover_lowrank_mle, recover_mle_gan)
 from quantized_spectrum_cartography_tpu_torch.training import (
     load_checkpoint, load_generator)
+from quantized_spectrum_cartography_tpu_torch.utils import tracing
 
 MEAN, STD = 0.0045, 0.008
 GAN256 = Path(__file__).resolve().parents[1] / "checkpoints" / "gan256" / \
@@ -59,6 +62,26 @@ GAN256 = Path(__file__).resolve().parents[1] / "checkpoints" / "gan256" / \
 def _device_us(evt) -> float:
     return float(getattr(evt, "self_device_time_total",
                          getattr(evt, "self_cuda_time_total", 0.0)))
+
+
+def span_ms(records) -> dict:
+    """Host ms summed by span name, the longest first."""
+    total = {}
+    for name, start, end, *_ in records:
+        total[name] = total.get(name, 0.0) + (end - start) / 1e6
+    return dict(sorted(total.items(), key=lambda kv: -kv[1]))
+
+
+def busy_s(prof) -> float:
+    """Seconds in which at least one kernel of the profile ran (the union
+    of the kernels' intervals, as the benchmark takes it)."""
+    from port_bench.trace import union
+
+    ivs = union((e.start_ns(), e.start_ns() + e.duration_ns())
+                for e in prof.profiler.kineto_results.events()
+                if e.device_type() == DeviceType.CUDA
+                and not e.is_user_annotation())
+    return sum(b - a for a, b in ivs) / 1e9
 
 
 def lowrank_solve(batch):
@@ -191,9 +214,11 @@ def main(argv=None):
         return res
 
     solve()
+    tracing.clear()
     t0 = time.perf_counter()
     solve()
     wall_s = time.perf_counter() - t0
+    spans = span_ms(tracing.spans())
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -203,7 +228,10 @@ def main(argv=None):
         prof.export_chrome_trace(args.trace)
 
     avgs = prof.key_averages()
-    kernels = sorted((a for a in avgs if a.device_type == DeviceType.CUDA),
+    # a span's record_function range also shows as a device-side
+    # annotation: not a kernel
+    kernels = sorted((a for a in avgs if a.device_type == DeviceType.CUDA
+                      and not getattr(a, "is_user_annotation", False)),
                      key=_device_us, reverse=True)
     device_ms = sum(_device_us(a) for a in kernels) / 1e3
     host = sorted((a for a in avgs if a.device_type == DeviceType.CPU),
@@ -217,8 +245,9 @@ def main(argv=None):
         "wall_s": wall_s,
         "maps_per_s": maps / wall_s,
         "profiled_wall_s": profiled_s,
+        "span_ms": spans,
         "device_ms": device_ms,
-        "device_busy_share": device_ms / 1e3 / wall_s,
+        "device_busy_share": busy_s(prof) / profiled_s,
         "kernel_launches": sum(a.count for a in kernels),
         "top_kernels": [[a.key[:60], a.count, _device_us(a) / 1e3]
                         for a in kernels[: args.top]],

@@ -20,6 +20,13 @@ measures, in order:
 4. an open loop: Poisson arrivals at `--open-frac` of the raw bound,
    completion times taken in the futures' done-callbacks.
 
+Each request is timed from its due time (the loop's start in the closed
+loop, its arrival in the open one), so a generator that falls behind
+counts.  Each loop also gives the p50 and p95 of a request's waits and of
+its batch's parts, from the scheduler's spans (``utils.tracing``): the
+wait in the queue, the batch's collect, stack, solve, download and drain,
+and the wait from the solve's return to the answer.
+
 Quality gate: every returned cost finite and the mean NMSE of the served
 maps below 1; a run that fails it exits 1.  Writes `--out` (default
 ``SERVING_TORCH.json`` at the repository root) after the closed loop and
@@ -59,6 +66,7 @@ from quantized_spectrum_cartography_tpu_torch.physics import (
 from quantized_spectrum_cartography_tpu_torch.solvers import (
     recover_lowrank_mle,
 )
+from quantized_spectrum_cartography_tpu_torch.utils import tracing
 
 ROOT = Path(__file__).resolve().parents[1]
 G, K, R = 51, 64, 2
@@ -110,11 +118,11 @@ def served_nmse(results, T_true) -> float:
 
 def run_stream(sched, payloads, gaps=None):
     """Submit every payload (all at once, or after each gap in seconds);
-    returns (results, submit times, completion times, start), the
+    returns (results, due times, completion times, start), the
     completion times stamped in done-callbacks."""
     n = len(payloads)
     done = [0.0] * n
-    submitted = [0.0] * n
+    due = [0.0] * n
     futures = []
     t0 = time.perf_counter()
     next_t = t0
@@ -124,7 +132,7 @@ def run_stream(sched, payloads, gaps=None):
             wait = next_t - time.perf_counter()
             if wait > 0:
                 time.sleep(wait)
-        submitted[i] = time.perf_counter()
+        due[i] = next_t
         f = sched.submit(p)
         f.add_done_callback(
             lambda fut, i=i: done.__setitem__(i, time.perf_counter()))
@@ -137,13 +145,28 @@ def run_stream(sched, payloads, gaps=None):
         time.sleep(0.005)
     if not all(d > 0.0 for d in done):
         raise RuntimeError("missing completion stamps")
-    return results, np.asarray(submitted), np.asarray(done), t0
+    return results, np.asarray(due), np.asarray(done), t0
 
 
 def latency_summary(lat) -> dict:
     return {f"latency_{q}_s": float(np.percentile(lat, p))
             for q, p in (("p50", 50), ("p95", 95), ("p99", 99))} | {
         "latency_max_s": float(lat.max())}
+
+
+def request_parts() -> dict:
+    """p50 and p95 seconds of each request's queue wait, result wait and
+    whole, and of each batch's scheduler spans (collect, stack, solve,
+    download, drain), from what the scheduler recorded since the recorder
+    was last cleared (empty with recording off); summed up as the
+    benchmark's readers do (``port_bench/program_spans.py``)."""
+    from port_bench import program_spans as ps
+
+    recs = tracing.spans()
+    parts = {**ps.request_ms(recs), **ps.batch_ms(recs)}
+    return {f"{part}_{q}_s": float(np.percentile(v, p)) / 1e3
+            for part, v in parts.items() if v
+            for q, p in (("p50", 50), ("p95", 95))}
 
 
 def dispatch_summary(sched) -> dict:
@@ -210,8 +233,9 @@ def main(argv=None):
                                  device=device)
 
     payloads = [{"T_obs": T_obs[i]} for i in range(args.requests)]
+    tracing.clear()
     sched = scheduler()
-    results, sub, done, t0 = run_stream(sched, payloads)
+    results, due, done, t0 = run_stream(sched, payloads)
     sched.shutdown()
     serving = args.requests / (done.max() - t0)
     finite = bool(all(np.isfinite(r["cost"]) for r in results))
@@ -226,7 +250,8 @@ def main(argv=None):
         "maps_per_sec": serving,
         "raw_bound_maps_per_sec": raw_maps_per_sec,
         "fraction_of_raw": serving / raw_maps_per_sec,
-        **latency_summary(done - sub),
+        **latency_summary(done - due),
+        **request_parts(),
         "batches_dispatched": sched.batches_dispatched,
         **dispatch_summary(sched),
         "quality": {"finite_costs": finite, "mean_nmse": mean_nmse},
@@ -248,8 +273,9 @@ def main(argv=None):
                                                 size=args.requests)
     print(f"open loop: lambda = {lam:.2f} req/s ({args.open_frac:.2f} x raw "
           f"bound)", flush=True)
+    tracing.clear()
     sched = scheduler()
-    results, sub, done, t0 = run_stream(sched, payloads, gaps)
+    results, due, done, t0 = run_stream(sched, payloads, gaps)
     sched.shutdown()
     # the sustained rate leaves out the warm-up and drain edges:
     # completions between the 10th and 90th percentile completion times
@@ -263,7 +289,8 @@ def main(argv=None):
         "offered_load_maps_per_sec": lam,
         "sustained_maps_per_sec": float(sustained),
         "completed_over_span_maps_per_sec": args.requests / (done.max() - t0),
-        **latency_summary(done - sub),
+        **latency_summary(done - due),
+        **request_parts(),
         "batches_dispatched": sched.batches_dispatched,
         **dispatch_summary(sched),
         "finite_costs": finite,

@@ -48,6 +48,7 @@ from quantized_spectrum_cartography_tpu_torch.solvers.base import (
     inner_steps,
     value_and_grad,
 )
+from quantized_spectrum_cartography_tpu_torch.utils.tracing import span
 
 _MAP = (-3, -2, -1)      # per-map axes of T [B,K,I,J] and S [B,R,I,J]
 _PSD = (-2, -1)          # per-map axes of C [B,R,K]
@@ -214,20 +215,27 @@ def recover_lowrank_mle(
         ss, cs, start = adam_init(S), adam_init(C), 0
 
     costs, nmses = [], []
-    with torch.no_grad():
+    # spans (utils.tracing): the solve, keyed by (B, max_iters), and in it
+    # each outer iteration's phases
+    with torch.no_grad(), span("qsc.lowrank.solve", key=(B, cfg.max_iters)):
         for i in range(start, start + cfg.max_iters):
             if joint:
-                cost, (gS, gC) = value_and_grad(cost_fn, S, C)
-                S, ss = adam_step(cfg.lr_s, gS, S, ss)
-                C, cs = adam_step(lr_c, gC, C, cs)
-                S, C = project(S, C)
-            else:
-                S, ss, _ = inner_steps(cfg.s_inner_iters, cfg.lr_s,
-                                       lambda s: cost_fn(s, C), S, ss)
-                C, cs, cost = inner_steps(cfg.c_inner_iters, lr_c,
-                                          lambda c: cost_fn(S, c), C, cs)
-                if (i + 1) % cfg.projection_interval == 0:
+                with span("qsc.lowrank.joint_step"):
+                    cost, (gS, gC) = value_and_grad(cost_fn, S, C)
+                    S, ss = adam_step(cfg.lr_s, gS, S, ss)
+                    C, cs = adam_step(lr_c, gC, C, cs)
+                with span("qsc.lowrank.project"):
                     S, C = project(S, C)
+            else:
+                with span("qsc.lowrank.s_steps"):
+                    S, ss, _ = inner_steps(cfg.s_inner_iters, cfg.lr_s,
+                                           lambda s: cost_fn(s, C), S, ss)
+                with span("qsc.lowrank.c_steps"):
+                    C, cs, cost = inner_steps(cfg.c_inner_iters, lr_c,
+                                              lambda c: cost_fn(S, c), C, cs)
+                if (i + 1) % cfg.projection_interval == 0:
+                    with span("qsc.lowrank.project"):
+                        S, C = project(S, C)
             costs.append(cost)
             nmses.append(nmse(get_tensor(S, C), T_true, _MAP) if track_true
                          else torch.zeros(B, device=S.device))

@@ -10,7 +10,12 @@ Phases, each printing one line with its seconds:
   3. parity  - the 1-bit pair against its plain PyTorch version at the bench
                shapes (B=256, K=64, 51x51), R=2 and R=10, with and without a
                10% entry mask; value rtol 1e-5, gradients 1e-4 of max |grad|;
-               a second launch must give the same bits
+               a second launch must give the same bits; then the
+               Householder QR kernel against torch.linalg.qr on the
+               projection's Y at [256 | 64, 2, 51, 18] (full rank: the same
+               projector Q Q^T within 1e-5) and on a Y of rank 10 (Q Q^T Y
+               = Y within 1e-5), Q^T Q = I within 1e-5, one launch a call,
+               the same bits from a second launch
   4. parity_ordinal - the four ordinal kernels (bounds and coded, forward
                and backward), each against its plain version, same
                tolerances, R=2 and R=10, with and without a 10% mask, on
@@ -30,7 +35,8 @@ Phases, each printing one line with its seconds:
   5. main    - the bench protocol through the port's entry points:
                generate_map_batch -> dither_probit -> recover_lowrank_mle
                (50 outer x (5 S + 5 C) Adam steps, rank-10 projection every
-               5); both 1-bit kernels must launch, the results must have
+               5); both 1-bit kernels must launch, the QR kernel 2 x 10 =
+               20 times (twice a projection), the results must have
                their shapes and finite costs, the final NMSE must be finite
                and < 1, and the same solve with nll_mode="plain" must reach
                the same final costs (rtol 1e-3)
@@ -44,8 +50,8 @@ Phases, each printing one line with its seconds:
                from the served path (the scheduler takes requests through
                Python's queue, as the JAX package's does); 256 requests in
                a closed loop, then 70 more (a padded last batch); the 1-bit
-               pair must launch 500 / 500 times a dispatched batch and no
-               other kernel, every request's S, C and cost must equal a
+               pair must launch 500 / 500 times a dispatched batch, the QR
+               20, and no other kernel, every request's S, C and cost must equal a
                direct solve of the batch it rode in (pad slots included)
                bit for bit, costs be finite and the mean NMSE < 1; the
                direct solves, back to back, give the raw bound; the first
@@ -61,13 +67,13 @@ Phases, each printing one line with its seconds:
                K=64, R=2, B=2, 4-bin log quantizer at sigma 5, 50 Adam
                steps) against the same solve without a group (costs rtol
                2e-4, factors rtol 1e-3 / atol 1e-6, JAX's tolerances),
-               falling, and no kernel launched (plain likelihood, as in
-               JAX); at world size 1 its all-reduces see one rank, so this
+               falling, no likelihood kernel launched (plain likelihood, as
+               in JAX) and the QR 2 x 10 times; at world size 1 its all-reduces see one rank, so this
                checks that the path runs under nccl, not the collective's
                arithmetic (the CPU tests split K over two gloo ranks);
                multihost_recover_lowrank in this process on the regenerate
                path (4 maps x 10 outer x (2 S + 2 C) steps): the 1-bit pair
-               must launch 40 / 40 times and the same rows solved with
+               must launch 40 / 40 times, the QR 4, and the same rows solved with
                nll_mode="plain" reach the same final costs (rtol 1e-3);
                then multihost_launch.py in a fresh process
                on the --shard-dir path (a prep process writes the shard,
@@ -135,7 +141,7 @@ Phases, each printing one line with its seconds:
                back by data.load_onebit_fixture bit for bit; then `recover
                --fixture` in this process at the CLI's defaults: --solver
                lowrank must launch the 1-bit pair 100 x (5 + 5) = 1000 /
-               1000 times and no other kernel, --solver mle-gan the bounds
+               1000 times, the QR 2 x 20, and no other kernel, --solver mle-gan the bounds
                pair 2*100+2 / 2*100; each final cost within rtol 1e-3 of
                the same recovery with nll_mode="plain", each --out npz
                holding the arrays `cli report` reads
@@ -211,7 +217,9 @@ Phases, each printing one line with its seconds:
                in one CUDA graph, its replays timed with CUDA events, so the
                host's cost per call drops out) and its bound: the 1-bit pair
                at the bench shapes, the ordinal kernels at the MLE-GAN shape
-               (B=1) and at the low-rank shape (B=256)
+               (B=1) and at the low-rank shape (B=256), the QR at the
+               projection's [256, 2, 51, 18] with torch.linalg.qr beside it
+               as the yardstick (`library_ms`; the port never calls it)
 
 cuDNN runs without TF32 and with deterministic algorithms
 (config.set_card_numerics, which the CLI sets too), so the solve
@@ -253,7 +261,8 @@ PEAK_BYTES_S, PEAK_F32_FLOP_S = 3.35e12, 67e12
 
 CSRC = "quantized_spectrum_cartography_tpu_torch/csrc/"
 TPU_KERNELS = "quantized_spectrum_cartography_tpu/ops/pallas/fused_likelihood.py"
-# kernel name -> (source, line of the TPU kernel it replaces)
+# kernel name -> (source, line of the TPU kernel it replaces; None for the
+# QR, which replaces none: JAX's jnp.linalg.qr is one batched XLA op)
 KERNELS = {
     "onebit_nll_fwd": ("onebit_nll.cu", 630),
     "onebit_nll_bwd": ("onebit_nll.cu", 638),
@@ -261,7 +270,12 @@ KERNELS = {
     "quantized_nll_bwd": ("quantized_nll.cu", 168),
     "quantized_nll_coded_fwd": ("quantized_nll_coded.cu", 442),
     "quantized_nll_coded_bwd": ("quantized_nll_coded.cu", 454),
+    "householder_qr": ("householder_qr.cu", None),
 }
+QR = "householder_qr"
+# the projection's Y at the bench shape: [B, R, 51, rank 10 + oversample 8]
+QR_COLS, QR_RANK = 18, 10
+QR_TOL = 1e-5          # orthonormality, projector, Q Q^T Y against Y
 ORDINAL = ("quantized_nll_fwd", "quantized_nll_bwd",
            "quantized_nll_coded_fwd", "quantized_nll_coded_bwd")
 ROOT = Path(__file__).resolve().parent
@@ -416,7 +430,55 @@ def parity():
             err_f = max(err_f, (v - v0).abs().max().item())
             err_b = max(err_b, (dS - dS0).abs().max().item(),
                         (dC - dC0).abs().max().item())
-    return {"onebit_nll_fwd": err_f, "onebit_nll_bwd": err_b}
+    return {"onebit_nll_fwd": err_f, "onebit_nll_bwd": err_b,
+            QR: parity_qr(gen)}
+
+
+def parity_qr(gen):
+    """The Householder QR kernel against torch.linalg.qr: full-rank Y at
+    the bench and serving shapes ([256 | 64, 2, 51, 18]; the same projector
+    Q Qᵀ), and Y of rank 10 from rank-truncated S (Q Qᵀ Y = Y); Qᵀ Q = I;
+    a second launch gives the same bits.  Returns the max abs projector
+    error."""
+    from quantized_spectrum_cartography_tpu_torch.ops import lowrank as lr
+    from quantized_spectrum_cartography_tpu_torch.ops.kernels import (
+        householder_qr as hq)
+
+    probe = lr.default_probe(GRID, QR_COLS, device=DEVICE)
+    S = 0.05 * torch.rand(64, RANK, GRID, GRID, generator=gen, device=DEVICE)
+    cases = {
+        "full B=256": torch.randn(BATCH, RANK, GRID, QR_COLS, generator=gen,
+                                  device=DEVICE),
+        "full B=64": torch.randn(SERVE_BATCH, RANK, GRID, QR_COLS,
+                                 generator=gen, device=DEVICE),
+        "rank 10 B=64": lr.project_rank(S, QR_RANK) @ probe,
+    }
+    err = 0.0
+    for label, Y in cases.items():
+        before = hq.householder_qr_cuda.launches
+        Q, again = hq.householder_qr_cuda(Y), hq.householder_qr_cuda(Y)
+        torch.cuda.synchronize()
+        launched = hq.householder_qr_cuda.launches - before
+        Q0 = torch.linalg.qr(Y)[0]
+        Qt = Q.transpose(-1, -2)
+        orth = (Qt @ Q - torch.eye(QR_COLS, device=DEVICE)).abs().max().item()
+        resid = ((Q @ (Qt @ Y) - Y).norm() / Y.norm()).item()
+        proj = (Q @ Qt - Q0 @ Q0.transpose(-1, -2)).abs().max().item()
+        full = label.startswith("full")
+        print(f"parity {QR} {label} {tuple(Y.shape)}: |QᵀQ - I| {orth:.2e}, "
+              f"||QQᵀY - Y||/||Y|| {resid:.2e}, projector against "
+              f"torch.linalg.qr "
+              f"{proj:.2e}{'' if full else ' (not compared: rank 10)'}; "
+              f"second launch bitwise {torch.equal(Q, again)}; {launched} "
+              f"launches", flush=True)
+        if not (orth <= QR_TOL and resid <= QR_TOL
+                and (proj <= QR_TOL or not full) and torch.equal(Q, again)
+                and launched == 2):
+            fail(f"{QR} disagrees with torch.linalg.qr on {label}, or with "
+                 f"itself")
+        if full:
+            err = max(err, proj)
+    return err
 
 
 def ordinal_cases():
@@ -588,12 +650,15 @@ def main_path(card):
         torch.cuda.synchronize()
         return res, time.perf_counter() - t
 
-    k.reset_launches()
+    reset_counts()
     res, first_s = solve(T_true=T)
-    launches = {"onebit_nll_fwd": k.onebit_nll_fwd_cuda.launches,
-                "onebit_nll_bwd": k.onebit_nll_bwd_cuda.launches}
-    if min(launches.values()) == 0:
-        fail(f"the main path did not go through both kernels: {launches}")
+    counts = kernel_counts()
+    launches = {name: counts[name] for name in ("onebit_nll_fwd",
+                                                "onebit_nll_bwd", QR)}
+    want_qr = 2 * (OUTER // scfg.projection_interval)
+    if min(launches.values()) == 0 or launches[QR] != want_qr:
+        fail(f"the main path did not go through both kernels, or launched "
+             f"the QR other than {want_qr} times: {launches}")
     shapes = (tuple(res.S.shape), tuple(res.C.shape), tuple(res.costs.shape))
     if shapes != ((BATCH, RANK, GRID, GRID), (BATCH, RANK, BANDS),
                   (BATCH, OUTER)) or not torch.isfinite(res.costs).all():
@@ -631,8 +696,6 @@ def serve():
     import numpy as np
 
     from quantized_spectrum_cartography_tpu_torch import serving_bench as sb
-    from quantized_spectrum_cartography_tpu_torch.ops.kernels import (
-        onebit_nll as k, quantized_nll as q)
     from quantized_spectrum_cartography_tpu_torch.parallel import (
         RecoveryScheduler)
     from quantized_spectrum_cartography_tpu_torch.runtime import (
@@ -652,7 +715,8 @@ def serve():
     if not same_bytes:
         fail("the native queue did not give the requests back unchanged")
 
-    solver = sb.make_solver(sb.serving_config(OUTER, INNER))
+    served_cfg = sb.serving_config(OUTER, INNER)
+    solver = sb.make_solver(served_cfg)
     batches = []          # (ids, observations) of every dispatched batch
 
     def recording(stacked):
@@ -660,8 +724,7 @@ def serve():
         return solver(stacked)
 
     payloads = [{"T_obs": packed[i], "id": np.int64(i)} for i in range(n)]
-    k.reset_launches()
-    q.reset_launches()
+    reset_counts()
     sched = RecoveryScheduler(recording, batch_size=SERVE_BATCH,
                               max_wait_ms=20.0, pipeline_depth=3,
                               drain_threads=2, device=DEVICE)
@@ -670,17 +733,19 @@ def serve():
     results += sb.run_stream(sched, payloads[SERVE_CLOSED:])[0]
     sched.shutdown()
     dispatch = sched.solve_seconds
-    launches = {name: getattr(k if name.startswith("onebit") else q,
-                              name + "_cuda").launches for name in KERNELS}
+    launches = kernel_counts()
     per_solve = OUTER * 2 * INNER
     want = {name: (sched.batches_dispatched * per_solve
                    if name.startswith("onebit") else 0) for name in KERNELS}
+    qr_per_solve = 2 * (OUTER // served_cfg.projection_interval)
+    want[QR] = sched.batches_dispatched * qr_per_solve
     print(f"serve: {sched.batches_dispatched} batches, {sched.maps_completed}"
           f" maps; launches {launches}", flush=True)
     if launches != want or sched.maps_completed != n:
         fail(f"serving launched {launches}, expected {want} "
-             f"({per_solve} a batch), or completed {sched.maps_completed} "
-             f"of {n} maps")
+             f"({per_solve} a batch of each likelihood kernel, "
+             f"{qr_per_solve} of the QR), or completed "
+             f"{sched.maps_completed} of {n} maps")
 
     # the same stacked batches, solved directly back to back: the raw bound
     torch.cuda.synchronize()
@@ -793,8 +858,6 @@ def distributed(card):
     from quantized_spectrum_cartography_tpu_torch.config import (
         QuantizerConfig, SolverConfig)
     from quantized_spectrum_cartography_tpu_torch.ops import boundaries as bnd
-    from quantized_spectrum_cartography_tpu_torch.ops.kernels import (
-        onebit_nll as k, quantized_nll as q)
     from quantized_spectrum_cartography_tpu_torch.ops.likelihood import (
         gather_bin_bounds)
     from quantized_spectrum_cartography_tpu_torch.ops.quantizer import (
@@ -825,26 +888,20 @@ def distributed(card):
              np.full((LAUNCH_BATCH, RANK, BANDS), 0.01, np.float32))
     lcfg = mh.solver_config(LAUNCH_ITERS)
 
-    def counts():
-        return {name: getattr(k if name.startswith("onebit") else q,
-                              name + "_cuda").launches for name in KERNELS}
-
     rdv = tempfile.mkdtemp(prefix="qsc_smoke_")
     init_distributed(f"file://{rdv}/rendezvous", 1, 0, DEVICE)
     try:
         mesh = make_global_mesh()
-        k.reset_launches()
-        q.reset_launches()
+        reset_counts()
         t = time.perf_counter()
         grouped = recover_lowrank_mle_ksharded(mesh, W, U, S0, C0, scfg, qcfg)
         torch.cuda.synchronize()
         ksharded_s = time.perf_counter() - t
-        ksharded_launches = counts()
-        k.reset_launches()
-        q.reset_launches()
+        ksharded_launches = kernel_counts()
+        reset_counts()
         local, total = multihost_recover_lowrank(
             mesh, T_obs, *inits, lcfg, mh.MEAN, mh.STD, device=DEVICE)
-        launches = counts()
+        launches = kernel_counts()
         plain, _ = multihost_recover_lowrank(
             mesh, T_obs, *inits, lcfg, mh.MEAN, mh.STD, device=DEVICE,
             nll_mode="plain")
@@ -861,14 +918,19 @@ def distributed(card):
           f"costs rel {cost_rel:.2e}, factors within rtol {KSHARD_RTOL} "
           f"{factor_ok}; costs falling {falling}; {ksharded_s:.3f} s on "
           f"{card}", flush=True)
+    # no likelihood kernel (the plain likelihood, as in JAX); the QR twice a
+    # projection
+    want = {**dict.fromkeys(KERNELS, 0),
+            QR: 2 * (KSHARD_ITERS // scfg.projection_interval)}
     if not (cost_rel <= KSHARD_COST_RTOL and factor_ok and falling
-            and not any(ksharded_launches.values())):
+            and ksharded_launches == want):
         fail(f"the K-sharded solve under a process group differs from the "
-             f"solve without one, did not progress, or launched a kernel: "
-             f"{ksharded_launches}")
+             f"solve without one, did not progress, or launched {want} "
+             f"other than {ksharded_launches}")
     per_solve = LAUNCH_ITERS * (lcfg.s_inner_iters + lcfg.c_inner_iters)
     want = {name: per_solve if name.startswith("onebit") else 0
             for name in KERNELS}
+    want[QR] = 2 * (LAUNCH_ITERS // lcfg.projection_interval)
     c, c0 = local["costs"][:, -1], plain["costs"][:, -1]
     plain_rel = float(np.max(np.abs(c - c0) / np.abs(c0)))
     print(f"distributed: multihost_recover_lowrank ({LAUNCH_BATCH} maps x "
@@ -1368,23 +1430,29 @@ def main_lowrank_ordinal(T_obs):
                         projection_interval=5, rank_truncation=10)
     S0 = torch.zeros(BATCH, RANK, GRID, GRID, device=DEVICE)
     C0 = torch.full((BATCH, RANK, BANDS), 0.01, device=DEVICE)
+    want_qr = 2 * (LOWRANK_ORDINAL_OUTER // scfg.projection_interval)
     launches, res = {}, None
     for enc in ("codes", "bounds"):
-        q.reset_launches()
+        reset_counts()
         res, secs = timed(lambda: recover_lowrank_mle(
             T_obs, S0, C0, scfg, MEAN, STD, obs_encoding=enc))
-        got = {name: getattr(q, name + "_cuda").launches for name in ORDINAL}
+        counts = kernel_counts()
+        got = {name: counts[name] for name in ORDINAL}
         plain, plain_s = timed(lambda: recover_lowrank_mle(
             T_obs, S0, C0, scfg, MEAN, STD, obs_encoding=enc,
             nll_mode="plain"))
         c, c0 = res.costs[:, -1], plain.costs[:, -1]
         rel = ((c - c0).abs() / c0.abs()).max().item()
-        print(f"main_lowrank_ordinal {enc}: launches {got}, {secs:.3f} s "
+        print(f"main_lowrank_ordinal {enc}: launches {got}, QR "
+              f"{counts[QR]}, {secs:.3f} s "
               f"(plain {plain_s:.3f} s) for {BATCH} maps, final costs vs "
               f"plain rel {rel:.2e}", flush=True)
         if not (torch.isfinite(res.costs).all() and rel <= COST_RTOL):
             fail(f"low-rank {enc}: non-finite costs or kernel/plain "
                  f"disagree: {rel}")
+        if counts[QR] != want_qr:
+            fail(f"low-rank {enc}: the QR launched {counts[QR]} times, "
+                 f"expected {want_qr}")
         launches.update({k: v for k, v in got.items() if v})
     if sorted(launches) != sorted(ORDINAL):
         fail(f"the low-rank encodings did not launch every kernel: {launches}")
@@ -1398,18 +1466,20 @@ def main_lowrank_ordinal(T_obs):
 def kernel_counts():
     """Each kernel's launch count since the last `reset_counts`."""
     from quantized_spectrum_cartography_tpu_torch.ops.kernels import (
-        onebit_nll as k, quantized_nll as q)
+        householder_qr as hq, onebit_nll as k, quantized_nll as q)
 
-    return {name: getattr(k if name.startswith("onebit") else q,
-                          name + "_cuda").launches for name in KERNELS}
+    return {name: getattr(hq if name == QR else k if name.startswith("onebit")
+                          else q, name + "_cuda").launches
+            for name in KERNELS}
 
 
 def reset_counts():
     from quantized_spectrum_cartography_tpu_torch.ops.kernels import (
-        onebit_nll as k, quantized_nll as q)
+        householder_qr as hq, onebit_nll as k, quantized_nll as q)
 
     k.reset_launches()
     q.reset_launches()
+    hq.reset_launches()
 
 
 def write_fixture(path):
@@ -1460,7 +1530,8 @@ def fixture(card):
     launches = dict.fromkeys(KERNELS, 0)
     steps = CLI_ITERS * 2 * INNER             # --iters x (5 S + 5 C) steps
     for solver, want in (
-            ("lowrank", {"onebit_nll_fwd": steps, "onebit_nll_bwd": steps}),
+            ("lowrank", {"onebit_nll_fwd": steps, "onebit_nll_bwd": steps,
+                         QR: 2 * (CLI_ITERS // 5)}),
             ("mle-gan", {"quantized_nll_fwd": 2 * CLI_ITERS + 2,
                          "quantized_nll_bwd": 2 * CLI_ITERS})):
         argv = ["recover", "--fixture", path, "--solver", solver]
@@ -2183,15 +2254,41 @@ def timing_ordinal(inputs, label):
     return ms, bounds
 
 
+def timing_qr(inputs):
+    """The QR at the bench projection's shape, Y = S @ probe from the main
+    path's final S ([256, 2, 51, 18]).  Bound: Y read once and Q written
+    once; 4mk² - 4k³/3 f32 operations a matrix (geqrf's 2mk² - 2k³/3 and as
+    many for orgqr's explicit Q).  torch.linalg.qr is timed in turns with it,
+    in the plain version's place, as the yardstick only (the port never
+    calls it on the card)."""
+    from quantized_spectrum_cartography_tpu_torch.ops import lowrank as lr
+    from quantized_spectrum_cartography_tpu_torch.ops.kernels import (
+        householder_qr as hq)
+
+    S_flat = inputs[0]
+    B, R, _ = S_flat.shape
+    Y = (S_flat.reshape(B, R, GRID, GRID)
+         @ lr.default_probe(GRID, QR_COLS, device=DEVICE))
+    ms = in_turns({QR: (lambda: hq.householder_qr_cuda(Y),
+                        lambda: torch.linalg.qr(Y))})
+    n, m, k = B * R, GRID, QR_COLS
+    bounds = {QR: bound(2 * 4 * n * m * k,
+                        n * (4 * m * k * k - 4 * k ** 3 / 3))}
+    return ms, bounds
+
+
 def timing(inputs_1bit, inputs_gan, inputs_lowrank):
     ms, bounds = timing_onebit(inputs_1bit)
     ms_gan, bounds_gan = timing_ordinal(inputs_gan, "MLE-GAN shape")
     ms_lr, bounds_lr = timing_ordinal(inputs_lowrank, "low-rank shape")
-    ms.update(ms_gan)
-    bounds.update(bounds_gan)
+    ms_qr, bounds_qr = timing_qr(inputs_1bit)
+    for part, part_bounds in ((ms_gan, bounds_gan), (ms_qr, bounds_qr)):
+        ms.update(part)
+        bounds.update(part_bounds)
     for name in KERNELS:
+        ref = "torch.linalg.qr (yardstick)" if name == QR else "plain"
         print(f"timing {name}: kernel {ms[name][0]:.4f} ms, graph "
-              f"{ms[name][2]:.4f} ms, plain {ms[name][1]:.4f} ms, bound "
+              f"{ms[name][2]:.4f} ms, {ref} {ms[name][1]:.4f} ms, bound "
               f"{bounds[name][0]:.4f} ms ({bounds[name][1]})", flush=True)
     for name in ORDINAL:
         print(f"timing {name} at B={BATCH}: kernel {ms_lr[name][0]:.4f} ms, "
@@ -2240,11 +2337,12 @@ def main():
     for name, (source, line) in KERNELS.items():
         rec = {
             "name": name, "route": "cuda", "source": CSRC + source,
-            "replaces": f"{TPU_KERNELS}:{line}",
+            "replaces": f"{TPU_KERNELS}:{line}" if line else None,
             "launches": launches[name], "max_abs_err": errs[name],
             "ms": ms[name][0], "graph_ms": ms[name][2],
-            "plain_ms": ms[name][1], "bound_ms": bounds[name][0],
-            "bound_by": bounds[name][1], "library_ms": None,
+            "plain_ms": None if name == QR else ms[name][1],
+            "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
+            "library_ms": ms[name][1] if name == QR else None,
             "serve_launches": launches_serve[name],
             "main_vae_launches": launches_vae.get(name, 0),
             "train_recover_launches": launches_train.get(name, 0),

@@ -10,6 +10,10 @@ from typing import Optional
 
 import torch
 
+from quantized_spectrum_cartography_tpu_torch.ops.kernels.householder_qr import (
+    householder_qr,
+)
+
 _PROBE_SEED = 7
 
 
@@ -72,7 +76,8 @@ def project_rank_subspace(
 
     Q spans the top-(rank+oversample) left singular subspace after
     `power_iters` rounds of (S Sᵀ)-multiplication with Householder-QR
-    re-orthonormalization; the top-`rank` directions inside it come from a
+    re-orthonormalization (`householder_qr`: the kernel on CUDA, one launch
+    for the whole batch); the top-`rank` directions inside it come from a
     (rank+oversample)² eigendecomposition.  `probe` [n, rank+oversample]
     defaults to `default_probe`.  Eigenvector signs do not matter: the
     result U Uᵀ S is invariant to them."""
@@ -85,9 +90,9 @@ def project_rank_subspace(
           else probe.to(device=S.device, dtype=S.dtype))
     Y = S @ G0
     for _ in range(power_iters):
-        Q, _ = torch.linalg.qr(Y)
+        Q = householder_qr(Y)
         Y = S @ (St @ Q)
-    Q, _ = torch.linalg.qr(Y)                      # [..., m, k]
+    Q = householder_qr(Y)                          # [..., m, k]
     B = Q.transpose(-1, -2) @ S                    # [..., k, n]
     _, evecs = torch.linalg.eigh(B @ B.transpose(-1, -2))   # ascending
     U = Q @ evecs[..., -rank:]                     # [..., m, rank]

@@ -12,6 +12,10 @@ import torch
 
 from quantized_spectrum_cartography_tpu_torch.config import SolverConfig
 from quantized_spectrum_cartography_tpu_torch.ops import boundaries as bnd
+from quantized_spectrum_cartography_tpu_torch.ops import lowrank as lr
+from quantized_spectrum_cartography_tpu_torch.ops.kernels import (
+    householder_qr as hq,
+)
 from quantized_spectrum_cartography_tpu_torch.ops.kernels import onebit_nll as k
 from quantized_spectrum_cartography_tpu_torch.ops.kernels import (
     quantized_nll as q,
@@ -92,8 +96,9 @@ def test_wrapper_rejects_bad_inputs(gen):
 @pytest.mark.cuda
 def test_solver_on_card_matches_plain_and_resumes_bitwise(gen):
     """A small solve through the kernels agrees with nll_mode="plain"
-    (rtol 1e-4 on the costs), and, with no float atomics anywhere in the
-    kernels, N + M resumed iterations equal N+M straight ones bitwise."""
+    (rtol 1e-4 on the costs); the QR kernel launches twice a projection;
+    and, with no float atomics anywhere in the kernels, N + M resumed
+    iterations equal N+M straight ones bitwise."""
     B, R, K, I = 4, 2, 16, 21
     T = torch.einsum("brij,brk->bkij",
                      0.3 * torch.rand(B, R, I, I, generator=gen, device="cuda"),
@@ -107,9 +112,12 @@ def test_solver_on_card_matches_plain_and_resumes_bitwise(gen):
     run = lambda c, **kw: recover_lowrank_mle(T_obs, S0, C0, c, MEAN, STD,  # noqa: E731
                                               T_true=T, **kw)
     k.reset_launches()
+    hq.reset_launches()
     straight = run(cfg)
     assert k.onebit_nll_fwd_cuda.launches == 12 * 6
     assert k.onebit_nll_bwd_cuda.launches == 12 * 6
+    assert hq.householder_qr_cuda.launches == 2 * (
+        cfg.max_iters // cfg.projection_interval)
     plain = run(cfg, nll_mode="plain")
     torch.testing.assert_close(straight.costs, plain.costs, rtol=1e-4,
                                atol=0.0)
@@ -118,6 +126,55 @@ def test_solver_on_card_matches_plain_and_resumes_bitwise(gen):
     second = run(half, state=first.aux["state"])
     assert torch.equal(second.S, straight.S)
     assert torch.equal(second.C, straight.C)
+
+
+def qr_input(gen, case):
+    """The projection's Y: full rank at [256 | 64, 2, 51, 18] (the bench
+    and the served batch), of rank 10 from S just after a rank-10
+    projection, or [4, 120, 60], whose 57 KB of shared memory take the
+    launch's opt-in above 48 KB."""
+    if case == "rank10":
+        S = 0.05 * torch.rand(64, 2, 51, 51, generator=gen, device="cuda")
+        return lr.project_rank(S, 10) @ lr.default_probe(51, 18,
+                                                          device="cuda")
+    shape = {"full256": (256, 2, 51, 18), "full64": (64, 2, 51, 18),
+             "wide": (4, 120, 60)}[case]
+    return torch.randn(shape, generator=gen, device="cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["full256", "full64", "rank10", "wide"])
+def test_householder_qr_kernel_matches_linalg_qr(gen, case):
+    """QᵀQ = I within 1e-5, Q Qᵀ Y = Y within 1e-5 ||Y||, torch.linalg.qr's
+    projector Q Qᵀ within 1e-5 (at full rank: at rank 10 the last 8 columns
+    span rounding noise, which differs between the two); one launch a call,
+    through the dispatch too; a second launch gives the same bits."""
+    Y = qr_input(gen, case)
+    before = hq.householder_qr_cuda.launches
+    Q = hq.householder_qr_cuda(Y)
+    assert hq.householder_qr_cuda.launches == before + 1
+    again = hq.householder_qr(Y)
+    assert hq.householder_qr_cuda.launches == before + 2
+    torch.cuda.synchronize()
+    Q0 = torch.linalg.qr(Y)[0]
+    eye = torch.eye(Y.shape[-1], device="cuda")
+    assert (Q.transpose(-1, -2) @ Q - eye).abs().max() <= 1e-5
+    assert (Q @ (Q.transpose(-1, -2) @ Y) - Y).norm() <= 1e-5 * Y.norm()
+    if case != "rank10":
+        P, P0 = Q @ Q.transpose(-1, -2), Q0 @ Q0.transpose(-1, -2)
+        assert (P - P0).abs().max() <= 1e-5
+    assert torch.equal(Q, again)
+
+
+@pytest.mark.cuda
+def test_householder_qr_wrapper_rejects_bad_inputs(gen):
+    Y = torch.randn(8, 51, 18, generator=gen, device="cuda")
+    with pytest.raises(TypeError, match="float32"):
+        hq.householder_qr(Y.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        hq.householder_qr(Y[::2])
+    with pytest.raises(ValueError, match="shared memory"):
+        hq.householder_qr(torch.zeros(1, 200, 150, device="cuda"))
 
 
 def ordinal_inputs(gen, case, B, R, masked, K=64, I=51):

@@ -1,0 +1,12 @@
+"""Host time of the NNLS C-steps (each with the decoder's forward before it)
+per DowJons call, read without the profiler: the median, over the window's
+calls outside the traced stretch, of the summed `qsc.dowjons.c_step` spans
+(`solvers/completion.py`) of each, in ms."""
+
+from port_bench import eval_spans
+
+UNIT, LAYER, MOVES = "ms", "optimizer and projection", "maps_per_s"
+
+
+def read(ctx):
+    return eval_spans.children_ms(ctx, "qsc.dowjons.c_step")

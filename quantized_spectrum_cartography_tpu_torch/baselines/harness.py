@@ -53,6 +53,7 @@ from quantized_spectrum_cartography_tpu_torch.physics import (
 from quantized_spectrum_cartography_tpu_torch.physics.shadowing import (
     correlation_cholesky,
 )
+from quantized_spectrum_cartography_tpu_torch.utils.tracing import span
 
 _MAP = (-3, -2, -1)
 
@@ -250,7 +251,8 @@ def make_problem(
 
 HarnessFn = Callable[..., Dict[str, torch.Tensor]]
 # signature: (generator, problem) -> {"T_hat": ..., optional "S_hat",
-# "C_hat"}, each with the problem's leading batch axis
+# "C_hat", and any diagnostics a method adds, which the runners ignore},
+# each with the problem's leading batch axis
 
 # the reference keeps a BTD example only when its SRE < 3
 # (joint_opt_ae.m:496-501 count_valid)
@@ -510,6 +512,9 @@ def standard_methods(
     btd_restarts: int = 8,
     dowjons_iters: int = 30,
     dowjons_restarts: int = 4,
+    dowjons_z_steps: int = 20,
+    dowjons_nnls_iters: int = 100,
+    dowjons_init_steps: int = 150,
     ae_input_apply: Optional[Callable] = None,
     ae_latent_fns: Optional[tuple] = None,
     dowjons_variant: str = "gan",
@@ -532,7 +537,10 @@ def standard_methods(
     variants on gen_apply) take their standard normals as `draws=` (see
     `btd_ll1`, `recover_dowjons_unquantized`) instead of the generator
     when given.  "dowjons" is the `dowjons_variant` ('gan' by default),
-    popped from its own key so a full registry runs it once."""
+    popped from its own key so a full registry runs it once.  The
+    `dowjons_*` counts set the GAN variant's loops: outer iterations,
+    restarts, latent steps an iteration, NNLS iterations a C-step and the
+    init fit's steps."""
     from quantized_spectrum_cartography_tpu_torch.baselines.btd import btd_ll1
     from quantized_spectrum_cartography_tpu_torch.baselines.spa import nmf_spa
     from quantized_spectrum_cartography_tpu_torch.baselines.tps import (
@@ -625,21 +633,33 @@ def standard_methods(
         def dowjons_gan_fn(generator, hp, draws=None):
             # SPA-informed latent init (joint_opt_ae.m:301-317): the SPA
             # columns, completed at their raw amplitude by the AE when it
-            # is there (dense init), else the masked raw SPA columns
+            # is there (dense init), else the masked raw SPA columns.
+            # Besides the estimate: the SPA start, the winner's per-outer-
+            # iteration costs, final latents and index, the restarts'
+            # final residuals and starts, the init fit's costs.  Spans: `qsc.dowjons.solve` keyed (examples, restarts,
+            # outer iterations), in it `qsc.dowjons.spa` and the solver's.
             R, W = hp.S_true.shape[-3], mask(hp)
             I, J = hp.T_obs.shape[-2:]
-            _, S_flat = nmf_spa(hp.T_obs.flatten(-2), R)
-            S_init = S_flat.reshape(*hp.T_obs.shape[:-3], R, I, J)
-            dense = ae_complete is not None
-            if dense:
-                S_init = ae_complete(W[..., None, :, :], S_init)
-            plain = recover_dowjons_unquantized(
-                hp.T_obs, hp.Om, gen_apply, num_emitters=R, z_dim=z_dim,
-                outer_iters=dowjons_iters, S_init=S_init,
-                n_restarts=dowjons_restarts, S_init_dense=dense,
-                generator=generator, draws=draws)
-            T_hat = backstop(plain.T_hat, hp) if dense else plain.T_hat
-            return {"T_hat": T_hat, "S_hat": plain.S, "C_hat": plain.C}
+            B = hp.Om.shape[:-2].numel()
+            with span("qsc.dowjons.solve",
+                      key=(B, dowjons_restarts, dowjons_iters)):
+                with span("qsc.dowjons.spa"):
+                    _, S_flat = nmf_spa(hp.T_obs.flatten(-2), R)
+                    S_init = S_flat.reshape(*hp.T_obs.shape[:-3], R, I, J)
+                dense = ae_complete is not None
+                S_fit = (ae_complete(W[..., None, :, :], S_init) if dense
+                         else S_init)
+                plain = recover_dowjons_unquantized(
+                    hp.T_obs, hp.Om, gen_apply, num_emitters=R, z_dim=z_dim,
+                    outer_iters=dowjons_iters,
+                    z_steps_per_iter=dowjons_z_steps,
+                    nnls_iters=dowjons_nnls_iters, S_init=S_fit,
+                    init_steps=dowjons_init_steps,
+                    n_restarts=dowjons_restarts, S_init_dense=dense,
+                    generator=generator, draws=draws)
+                T_hat = backstop(plain.T_hat, hp) if dense else plain.T_hat
+            return {"T_hat": T_hat, "S_hat": plain.S, "C_hat": plain.C,
+                    "S_init": S_init, "costs": plain.costs, **plain.aux}
 
         methods["dowjons_gan"] = dowjons_gan_fn
 

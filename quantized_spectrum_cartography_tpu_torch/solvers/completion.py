@@ -49,6 +49,7 @@ from quantized_spectrum_cartography_tpu_torch.solvers.nasdac import (
 from quantized_spectrum_cartography_tpu_torch.solvers.priors import (
     randomized_search,
 )
+from quantized_spectrum_cartography_tpu_torch.utils.tracing import span
 
 _MAP = (-3, -2, -1)
 
@@ -364,7 +365,15 @@ def recover_dowjons_unquantized(
     the restart choice share (`solvers.nasdac.anchor_weight`).  `draws` =
     (the init fit's start [..., R, z_dim] or None without S_init, the
     restarts' starts [..., n_restarts, R, z_dim]); drawn from `generator`
-    when not given.
+    when not given.  `aux` holds the winner's final latents `Z`, its index
+    `best` [...], the restarts' final residuals `residuals` [...,
+    n_restarts] (`best` is their argmin), the restarts' starts `Z_start`
+    [..., n_restarts, R, z_dim] (restart 0's after the init fit), and with
+    `S_init` the init fit's costs `init_costs` [..., init_steps].
+
+    Spans (utils.tracing): `qsc.dowjons.init_fit`, each NNLS C-step with
+    the forward before it `qsc.dowjons.c_step`, each block of latent steps
+    `qsc.dowjons.z_steps`, and the winner's choice `qsc.dowjons.pick`.
     """
     batch = T_obs.shape[:-3]
     R, n = num_emitters, max(n_restarts, 1)
@@ -400,32 +409,42 @@ def recover_dowjons_unquantized(
                  / (fit * Gm * Gm).sum((-2, -1), keepdim=True).clamp_min(1e-12))
             return (fit * (a * Gm - S_init).square()).sum(_MAP)
 
-        Z_fit, _ = _adam_descent(init_loss, z_fit0, lr_z, init_steps)
+        with span("qsc.dowjons.init_fit", key=init_steps):
+            Z_fit, init_costs = _adam_descent(init_loss, z_fit0, lr_z,
+                                              init_steps)
         Z = torch.cat([Z_fit[..., None, :, :], Z[..., 1:, :, :]], dim=-3)
 
-    state, costs, nmses = adam_init(Z), [], []
+    Z_start, state, costs, nmses = Z, adam_init(Z), [], []
     with torch.no_grad():
         for _ in range(outer_iters):
-            C = c_step(_gen(gen_apply, Z))
-            for _ in range(z_steps_per_iter):
-                Z, state, cost = adam_update(lr_z, lambda zz: z_loss(zz, C),
-                                             Z, state)
+            with span("qsc.dowjons.c_step"):
+                C = c_step(_gen(gen_apply, Z))
+            with span("qsc.dowjons.z_steps", key=z_steps_per_iter):
+                for _ in range(z_steps_per_iter):
+                    Z, state, cost = adam_update(
+                        lr_z, lambda zz: z_loss(zz, C), Z, state)
             costs.append(cost)
             nmses.append(nmse(get_tensor(_gen(gen_apply, Z), C), T_ref,
                               dim=_MAP) if T_ref is not None
                          else torch.zeros_like(cost))
-        S = _gen(gen_apply, Z)
-        C = c_step(S)
-        best = torch.argmin(z_loss(Z, C), dim=-1)             # [...]
-        costs = torch.stack(costs, -1)
-        nmses = torch.stack(nmses, -1)
-        S, C, Z, costs, nmses = (gather_winner(x, best)
-                                 for x in (S, C, Z, costs, nmses))
-        if T_anchor is not None and polish_ridge > 0.0:
-            C = _polish_c_to_observed(S, C, T_obs, W[..., 0, :, :],
-                                      ridge_rel=polish_ridge)
+        with span("qsc.dowjons.c_step"):
+            S = _gen(gen_apply, Z)
+            C = c_step(S)
+        with span("qsc.dowjons.pick"):
+            residuals = z_loss(Z, C)                          # [..., n]
+            best = torch.argmin(residuals, dim=-1)            # [...]
+            costs = torch.stack(costs, -1)
+            nmses = torch.stack(nmses, -1)
+            S, C, Z, costs, nmses = (gather_winner(x, best)
+                                     for x in (S, C, Z, costs, nmses))
+            if T_anchor is not None and polish_ridge > 0.0:
+                C = _polish_c_to_observed(S, C, T_obs, W[..., 0, :, :],
+                                          ridge_rel=polish_ridge)
+    aux = {"Z": Z, "best": best, "residuals": residuals, "Z_start": Z_start}
+    if S_init is not None:
+        aux["init_costs"] = init_costs
     return RecoveryResult(S=S, C=C, T_hat=get_tensor(S, C), nmses=nmses,
-                          costs=costs, aux={"Z": Z})
+                          costs=costs, aux=aux)
 
 
 def run_descent_ae(

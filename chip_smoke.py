@@ -41,7 +41,7 @@ Phases, each printing one line with its seconds:
                and < 1, and the same solve with nll_mode="plain" must reach
                the same final costs (rtol 1e-3)
   6. serve  - the port's RecoveryScheduler (parallel/scheduler.py) over
-               the batched 1-bit solver at serving_bench.py's configuration
+               the batched 1-bit solver at the serving configuration
                (51x51x64, R=2, batch 64, 50 outer x (5 S + 5 C) Adam steps,
                S0 = 0, C0 = 0.01, observations bit-packed on the wire, S, C
                and the final cost sent back): first the packed requests
@@ -54,14 +54,11 @@ Phases, each printing one line with its seconds:
                20, and no other kernel, every request's S, C and cost must equal a
                direct solve of the batch it rode in (pad slots included)
                bit for bit, costs be finite and the mean NMSE < 1; the
-               direct solves, back to back, give the raw bound; the first
-               batch of 64 distinct requests solved again with
+               first batch of 64 distinct requests solved again with
                nll_mode="plain" (final costs, rtol 1e-3) and the 1-bit pair
                at B=64 on its final factors against its plain version
-               (parity's tolerances); then an
-               open loop of 128 Poisson arrivals at 0.9 of the raw bound:
-               raw and closed-loop maps/s and the open loop's
-               p50/p95/p99/max latency
+               (parity's tolerances).  Served throughput and latency are
+               port_bench's (cell lowrank-1bit-r2.serve-poisson)
   7. distributed - a world-size-1 nccl process group on the card: the
                K-sharded ordinal solve (parallel/sharded_solver.py; 51x51,
                K=64, R=2, B=2, 4-bin log quantizer at sigma 5, 50 Adam
@@ -211,15 +208,14 @@ Phases, each printing one line with its seconds:
                    fresh process, its final cost within rtol 1e-3 of
                    main_vae's in-process run: the CLI sets the card's
                    numerics itself
-  19. timing - every kernel's and its plain version's ms (CUDA events over
-               back-to-back calls, in turns plain, kernel, kernel, plain),
-               the kernel's device time (graph_ms: TIMING_REPS calls captured
-               in one CUDA graph, its replays timed with CUDA events, so the
-               host's cost per call drops out) and its bound: the 1-bit pair
-               at the bench shapes, the ordinal kernels at the MLE-GAN shape
-               (B=1) and at the low-rank shape (B=256), the QR at the
-               projection's [256, 2, 51, 18] with torch.linalg.qr beside it
-               as the yardstick (`library_ms`; the port never calls it)
+  19. timing - every kernel's and its plain version's ms and its device
+               time (graph_ms) beside its bound, by bench_kernels.py's
+               timers and work counts, on the solves' final factors: the
+               1-bit pair at the bench shapes, the ordinal kernels at the
+               MLE-GAN shape (B=1) and at the low-rank shape (B=256), the QR
+               at the projection's [256, 2, 51, 18] with torch.linalg.qr
+               beside it as the yardstick (`library_ms`; the port never
+               calls it)
 
 cuDNN runs without TF32 and with deterministic algorithms
 (config.set_card_numerics, which the CLI sets too), so the solve
@@ -255,9 +251,6 @@ PARITY_RANKS = (2, 10)
 MASK_FRACTION = 0.1
 SCORER_N = 201
 VALUE_RTOL, GRAD_RTOL, COST_RTOL = 1e-5, 1e-4, 1e-3
-TIMING_REPS, GRAPH_REPLAYS = 20, 10
-# published H100 SXM peaks: HBM bytes/s and f32 FLOP/s outside tensor cores
-PEAK_BYTES_S, PEAK_F32_FLOP_S = 3.35e12, 67e12
 
 CSRC = "quantized_spectrum_cartography_tpu_torch/csrc/"
 TPU_KERNELS = "quantized_spectrum_cartography_tpu/ops/pallas/fused_likelihood.py"
@@ -294,10 +287,8 @@ TRAIN_KINDS = ("gan", "ae", "vae", "aae")
 CLI = (sys.executable, "-m", "quantized_spectrum_cartography_tpu_torch.cli")
 TRAIN_STEPS, TRAIN_LOG_EVERY, TRAIN_PARITY_STEPS = 300, 30, 3
 # serving: the scheduler's static batch, the closed-loop requests, the
-# requests after them (a padded last batch), the open loop's requests and
-# its offered load as a fraction of the raw bound
-SERVE_BATCH, SERVE_CLOSED, SERVE_EXTRA, SERVE_OPEN = 64, 256, 70, 128
-OPEN_FRAC = 0.9
+# requests after them (a padded last batch)
+SERVE_BATCH, SERVE_CLOSED, SERVE_EXTRA = 64, 256, 70
 # distribution: the K-sharded solve (maps, Adam steps; JAX's tolerances:
 # costs rtol, factors rtol and atol), the multi-process launch (maps, outer
 # iterations)
@@ -404,21 +395,16 @@ def rel_errs(v, v0, grads, grads0):
 
 def parity():
     """Max abs errors (fwd, bwd) over all cases; fails past tolerance."""
-    from quantized_spectrum_cartography_tpu_torch.ops.kernels import onebit_nll as k
+    from quantized_spectrum_cartography_tpu_torch import bench_kernels as bk
 
     gen = torch.Generator(device=DEVICE).manual_seed(0)
     err_f = err_b = 0.0
     for R in PARITY_RANKS:
         for masked in (False, True):
-            S, C, codes, g = parity_inputs(gen, R, masked)
-            out = [(k.onebit_nll_fwd_cuda(S, C, codes, MEAN, STD),
-                    *k.onebit_nll_bwd_cuda(S, C, codes, g, MEAN, STD))
-                   for _ in range(2)]
-            torch.cuda.synchronize()
-            (v, dS, dC), again = out
-            bitwise = all(torch.equal(a, b) for a, b in zip(out[0], again))
-            v0 = k.onebit_nll_plain(S, C, codes, MEAN, STD)
-            dS0, dC0 = k.onebit_nll_grad_plain(S, C, codes, g, MEAN, STD)
+            calls, _ = bk.onebit_kernels(*parity_inputs(gen, R, masked))
+            out, bitwise, ref = bk.run_twice(calls)
+            (v,), (dS, dC) = out["onebit_nll_fwd"], out["onebit_nll_bwd"]
+            (v0,), (dS0, dC0) = ref["onebit_nll_fwd"], ref["onebit_nll_bwd"]
             rel_v, (rel_s, rel_c) = rel_errs(v, v0, (dS, dC), (dS0, dC0))
             print(f"parity R={R} mask={masked}: value rel {rel_v:.2e}, "
                   f"dS {rel_s:.2e}, dC {rel_c:.2e} of max, second launch "
@@ -523,6 +509,7 @@ def ordinal_inputs(gen, case, R, masked):
 
 def parity_ordinal():
     """Max abs errors of the four ordinal kernels over all cases."""
+    from quantized_spectrum_cartography_tpu_torch import bench_kernels as bk
     from quantized_spectrum_cartography_tpu_torch.ops.kernels import (
         quantized_nll as q)
 
@@ -534,45 +521,21 @@ def parity_ordinal():
         for R in PARITY_RANKS:
             for masked in (False, True):
                 S, C, (W, U), codes, g = ordinal_inputs(gen, case, R, masked)
-                calls = {
-                    "quantized_nll_fwd": lambda: (
-                        q.quantized_nll_fwd_cuda(S, C, W, U, *st),),
-                    "quantized_nll_bwd": lambda: q.quantized_nll_bwd_cuda(
-                        S, C, W, U, g, *st),
-                    "quantized_nll_coded_fwd": lambda: (
-                        q.quantized_nll_coded_fwd_cuda(S, C, codes, table,
-                                                       *st),),
-                    "quantized_nll_coded_bwd": lambda: (
-                        q.quantized_nll_coded_bwd_cuda(S, C, codes, table, g,
-                                                       *st)),
-                }
-                out = {kname: fn() for kname, fn in calls.items()}
-                again = {kname: fn() for kname, fn in calls.items()}
-                torch.cuda.synchronize()
-                bitwise = all(torch.equal(a, b) for kname in calls
-                              for a, b in zip(out[kname], again[kname]))
-                ref = {"fwd": (q.quantized_nll_plain(S, C, W, U, *st),),
-                       "bwd": q.quantized_nll_grad_plain(S, C, W, U, g, *st)}
-                coded_ref = {
-                    "fwd": (q.quantized_nll_coded_plain(S, C, codes, table,
-                                                        *st),),
-                    "bwd": q.quantized_nll_coded_grad_plain(
-                        S, C, codes, table, g, *st)}
+                calls, _ = bk.ordinal_kernels(S, C, codes, W, U, g, table,
+                                              st)
+                out, bitwise, ref = bk.run_twice(calls)
                 # each kernel against its plain version, and the coded
                 # kernels against the bounds kernels, bit for bit
-                pairs = {
-                    "bounds": ("quantized_nll_fwd", "quantized_nll_bwd", ref),
-                    "coded": ("quantized_nll_coded_fwd",
-                              "quantized_nll_coded_bwd", coded_ref),
-                }
                 same = all(torch.equal(a, b) for a, b in zip(
                     out["quantized_nll_coded_fwd"]
                     + out["quantized_nll_coded_bwd"],
                     out["quantized_nll_fwd"] + out["quantized_nll_bwd"]))
                 ok, line = bitwise and same, []
-                for label, (fwd, bwd, r) in pairs.items():
+                for label, pair in (("bounds", "quantized_nll"),
+                                    ("coded", "quantized_nll_coded")):
+                    fwd, bwd = pair + "_fwd", pair + "_bwd"
                     rel_v, (rel_s, rel_c) = rel_errs(
-                        out[fwd][0], r["fwd"][0], out[bwd], r["bwd"])
+                        out[fwd][0], ref[fwd][0], out[bwd], ref[bwd])
                     ok = ok and (rel_v <= VALUE_RTOL and rel_s <= GRAD_RTOL
                                  and rel_c <= GRAD_RTOL)
                     line.append(f"{label}: value rel {rel_v:.2e}, dS "
@@ -584,11 +547,9 @@ def parity_ordinal():
                     fail(f"ordinal kernels disagree: {name} R={R} "
                          f"mask={masked}, or with themselves")
                 for kname in ORDINAL:
-                    r = (ref if "coded" not in kname else coded_ref)[
-                        kname[-3:]]
                     errs[kname] = max(errs[kname], *(
                         (a - b).abs().max().item()
-                        for a, b in zip(out[kname], r)))
+                        for a, b in zip(out[kname], ref[kname])))
 
     # the forward as the z-search scorer: N candidates share C and the
     # observations (batch stride 0); one launch against N single launches
@@ -622,9 +583,18 @@ def parity_ordinal():
     return errs
 
 
+def bench_config(outer=OUTER):
+    """The bench protocol's solver: `outer` x (5 S + 5 C) Adam steps, the
+    rank-10 projection every 5."""
+    from quantized_spectrum_cartography_tpu_torch.config import SolverConfig
+
+    return SolverConfig(max_iters=outer, s_inner_iters=INNER,
+                        c_inner_iters=INNER, lr_s=0.001, lr_c=0.001,
+                        projection_interval=5, rank_truncation=10)
+
+
 def main_path(card):
-    from quantized_spectrum_cartography_tpu_torch.config import (
-        PhysicsConfig, SolverConfig)
+    from quantized_spectrum_cartography_tpu_torch.config import PhysicsConfig
     from quantized_spectrum_cartography_tpu_torch.ops.kernels import onebit_nll as k
     from quantized_spectrum_cartography_tpu_torch.ops.quantizer import (
         dither_probit)
@@ -634,9 +604,7 @@ def main_path(card):
         recover_lowrank_mle)
 
     cfg = PhysicsConfig(grid_size=GRID, num_bands=BANDS, num_emitters=RANK)
-    scfg = SolverConfig(max_iters=OUTER, s_inner_iters=INNER,
-                        c_inner_iters=INNER, lr_s=0.001, lr_c=0.001,
-                        projection_interval=5, rank_truncation=10)
+    scfg = bench_config()
     gen = torch.Generator(device=DEVICE).manual_seed(0)
     T, _, _, _ = generate_map_batch(gen, cfg, BATCH, device=DEVICE)
     T_obs = dither_probit(T - MEAN, STD, gen)
@@ -685,24 +653,79 @@ def main_path(card):
     return launches, (S_flat, C, codes, g), T_obs
 
 
-def serve():
-    """The port's RecoveryScheduler over the batched 1-bit solver at the
-    serving configuration (serving_bench.py): the packed requests through
-    the native queue, a closed loop and a padded last batch, each request
-    bitwise against a direct solve of the batch it rode in, then an open
-    loop.  Returns the kernels' launches under the scheduler and the 1-bit
-    pair's max abs errors against its plain version at the serving
-    shape."""
+def make_requests(n):
+    """(T_true [n, K, G, G] on the card, bit-packed observations uint8
+    [n, K, ceil(G*G/8)] on the host): a stream of independent problems."""
+    from quantized_spectrum_cartography_tpu_torch.config import PhysicsConfig
+    from quantized_spectrum_cartography_tpu_torch.ops.quantizer import (
+        dither_probit, pack_bits_host)
+    from quantized_spectrum_cartography_tpu_torch.physics import (
+        generate_map_batch)
+
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    T, _, _, _ = generate_map_batch(gen, PhysicsConfig(
+        grid_size=GRID, num_bands=BANDS, num_emitters=RANK), n,
+        device=DEVICE)
+    y01 = dither_probit(T - MEAN, STD, gen.manual_seed(1))
+    return T, pack_bits_host(y01.reshape(n, BANDS, -1).cpu().numpy())
+
+
+def make_solver(nll_mode="auto"):
+    """The batched solve behind the scheduler: bit-packed observations in,
+    S, C and the final cost out, as device tensors (the scheduler
+    downloads them)."""
+    from quantized_spectrum_cartography_tpu_torch.ops.quantizer import (
+        unpack_bits)
+    from quantized_spectrum_cartography_tpu_torch.solvers import (
+        recover_lowrank_mle)
+
+    def solver_fn(stacked):
+        packed = stacked["T_obs"]
+        B = packed.shape[0]
+        T_obs = unpack_bits(packed, GRID * GRID).reshape(B, BANDS, GRID, GRID)
+        res = recover_lowrank_mle(
+            T_obs, torch.zeros(B, RANK, GRID, GRID, device=packed.device),
+            torch.full((B, RANK, BANDS), 0.01, device=packed.device),
+            bench_config(), MEAN, STD, nll_mode=nll_mode)
+        return {"S": res.S, "C": res.C, "cost": res.costs[:, -1]}
+    return solver_fn
+
+
+def served_nmse(results, T_true):
+    """Mean NMSE of the maps rebuilt from the served factors."""
     import numpy as np
 
-    from quantized_spectrum_cartography_tpu_torch import serving_bench as sb
+    from quantized_spectrum_cartography_tpu_torch.ops.lowrank import (
+        get_tensor)
+    from quantized_spectrum_cartography_tpu_torch.ops.metrics import nmse
+
+    S, C = (torch.as_tensor(np.stack([r[key] for r in results]),
+                            device=T_true.device) for key in ("S", "C"))
+    return float(nmse(get_tensor(S, C), T_true, (-3, -2, -1)).mean())
+
+
+def run_stream(sched, payloads):
+    """Submit every payload at once; their results, in order."""
+    futures = [sched.submit(p) for p in payloads]
+    return [f.result(timeout=600) for f in futures]
+
+
+def serve():
+    """The port's RecoveryScheduler over the batched 1-bit solver at the
+    serving configuration: the packed requests through the native queue, a
+    closed loop and a padded last batch, each request bitwise against a
+    direct solve of the batch it rode in.  Returns the kernels' launches
+    under the scheduler and the 1-bit pair's max abs errors against its
+    plain version at the serving shape."""
+    import numpy as np
+
     from quantized_spectrum_cartography_tpu_torch.parallel import (
         RecoveryScheduler)
     from quantized_spectrum_cartography_tpu_torch.runtime import (
         NativeBatchQueue)
 
     n = SERVE_CLOSED + SERVE_EXTRA
-    T_true, packed = sb.make_requests(n, DEVICE)
+    T_true, packed = make_requests(n)
     wire = NativeBatchQueue(capacity=n, item_bytes=packed[0].nbytes)
     pushed = all(wire.push(p, timeout_ms=1000) for p in packed)
     popped = np.concatenate([wire.pop_batch(SERVE_BATCH, timeout_ms=1000)
@@ -715,8 +738,7 @@ def serve():
     if not same_bytes:
         fail("the native queue did not give the requests back unchanged")
 
-    served_cfg = sb.serving_config(OUTER, INNER)
-    solver = sb.make_solver(served_cfg)
+    solver = make_solver()
     batches = []          # (ids, observations) of every dispatched batch
 
     def recording(stacked):
@@ -728,16 +750,14 @@ def serve():
     sched = RecoveryScheduler(recording, batch_size=SERVE_BATCH,
                               max_wait_ms=20.0, pipeline_depth=3,
                               drain_threads=2, device=DEVICE)
-    results, _, done, t0 = sb.run_stream(sched, payloads[:SERVE_CLOSED])
-    closed = SERVE_CLOSED / (done.max() - t0)
-    results += sb.run_stream(sched, payloads[SERVE_CLOSED:])[0]
+    results = run_stream(sched, payloads[:SERVE_CLOSED])
+    results += run_stream(sched, payloads[SERVE_CLOSED:])
     sched.shutdown()
-    dispatch = sched.solve_seconds
     launches = kernel_counts()
     per_solve = OUTER * 2 * INNER
     want = {name: (sched.batches_dispatched * per_solve
                    if name.startswith("onebit") else 0) for name in KERNELS}
-    qr_per_solve = 2 * (OUTER // served_cfg.projection_interval)
+    qr_per_solve = 2 * (OUTER // bench_config().projection_interval)
     want[QR] = sched.batches_dispatched * qr_per_solve
     print(f"serve: {sched.batches_dispatched} batches, {sched.maps_completed}"
           f" maps; launches {launches}", flush=True)
@@ -747,16 +767,9 @@ def serve():
              f"{qr_per_solve} of the QR), or completed "
              f"{sched.maps_completed} of {n} maps")
 
-    # the same stacked batches, solved directly back to back: the raw bound
-    torch.cuda.synchronize()
-    t = time.perf_counter()
-    outs, calls = [], []
-    for _, obs in batches:
-        t_call = time.perf_counter()
-        outs.append(solver({"T_obs": obs}))
-        calls.append(time.perf_counter() - t_call)
+    # the same stacked batches, solved directly
+    outs = [solver({"T_obs": obs}) for _, obs in batches]
     direct = [{key: v.cpu().numpy() for key, v in o.items()} for o in outs]
-    raw = len(batches) * SERVE_BATCH / (time.perf_counter() - t)
     equal, padded = True, 0
     for (ids, _), ref in zip(batches, direct):
         ids = ids.cpu().numpy()
@@ -766,7 +779,7 @@ def serve():
             np.array_equal(results[ids[j]][key], ref[key][j])
             for j in real for key in ("S", "C", "cost"))
     finite = all(np.isfinite(r["cost"]) for r in results)
-    mean_nmse = sb.served_nmse(results, T_true)
+    mean_nmse = served_nmse(results, T_true)
     print(f"serve: every request bitwise equal to a direct solve of its "
           f"batch: {equal} ({padded} padded batches); costs finite "
           f"{finite}; mean NMSE {mean_nmse:.4f}", flush=True)
@@ -779,26 +792,6 @@ def serve():
     if not full:
         fail("no dispatched batch held SERVE_BATCH distinct requests")
     errs = serve_plain(batches[full[0]][1], outs[full[0]])
-
-    gaps = np.random.default_rng(7).exponential(
-        1.0 / (OPEN_FRAC * raw), size=SERVE_OPEN)
-    sched = RecoveryScheduler(solver, batch_size=SERVE_BATCH,
-                              max_wait_ms=20.0, pipeline_depth=3,
-                              drain_threads=2, device=DEVICE)
-    res_open, due, done, _ = sb.run_stream(sched, payloads[:SERVE_OPEN], gaps)
-    sched.shutdown()
-    lat = sb.latency_summary(done - due)
-    print(f"serve: raw {raw:.2f} maps/s, closed loop {closed:.2f} maps/s = "
-          f"{closed / raw:.4f} of raw; open loop of {SERVE_OPEN} at "
-          f"{OPEN_FRAC} of raw: p50 {lat['latency_p50_s']:.3f} s, p95 "
-          f"{lat['latency_p95_s']:.3f} s, p99 {lat['latency_p99_s']:.3f} s, "
-          f"max {lat['latency_max_s']:.3f} s on {sb.card_line()}",
-          flush=True)
-    print(f"serve: host seconds a batch, dispatch thread (closed loop) "
-          f"{' '.join(f'{x:.3f}' for x in dispatch)}; main thread (direct) "
-          f"{' '.join(f'{x:.3f}' for x in calls)}", flush=True)
-    if not all(np.isfinite(r["cost"]) for r in res_open):
-        fail("non-finite costs in the open loop")
     return launches, errs
 
 
@@ -808,15 +801,13 @@ def serve_plain(obs, out):
     (final costs, COST_RTOL), then the 1-bit pair on the solve's final
     factors against its plain version at this shape (parity's tolerances).
     Returns the pair's max abs errors."""
-    from quantized_spectrum_cartography_tpu_torch import serving_bench as sb
     from quantized_spectrum_cartography_tpu_torch.ops.kernels import (
         onebit_nll as k)
     from quantized_spectrum_cartography_tpu_torch.ops.quantizer import (
         unpack_bits)
 
     B = obs.shape[0]
-    plain = sb.make_solver(sb.serving_config(OUTER, INNER),
-                           nll_mode="plain")({"T_obs": obs})
+    plain = make_solver(nll_mode="plain")({"T_obs": obs})
     c, c0 = out["cost"], plain["cost"]
     cost_rel = ((c - c0).abs() / c0.abs()).max().item()
     y01 = unpack_bits(obs, GRID * GRID).reshape(B, BANDS, GRID, GRID)
@@ -1137,11 +1128,12 @@ def main_gan(card, trees):
     res = results["bounds"]
     S_flat = res.S.reshape(1, RANK, -1).contiguous()
     C = res.C.T.contiguous()[None]
-    obs = (tuple(x[None].contiguous()
-                 for x in q.pack_bounds(Y, qcfg.boundaries, mask)),
-           q.pack_codes(Y, qcfg.num_bins, mask)[None])
-    inputs = (S_flat, C, obs, qcfg.boundaries, qcfg.noise_std,
-              qcfg.log_offset, False, q._fast_ok(qcfg.noise_std))
+    W, U = (x[None].contiguous()
+            for x in q.pack_bounds(Y, qcfg.boundaries, mask))
+    st = (qcfg.noise_std, qcfg.log_offset, False, q._fast_ok(qcfg.noise_std))
+    # bench_kernels.ordinal_kernels' arguments
+    inputs = (S_flat, C, q.pack_codes(Y, qcfg.num_bins, mask)[None], W, U,
+              torch.ones(1, device=DEVICE), qcfg.boundaries, st)
     return launches, inputs
 
 
@@ -1417,7 +1409,6 @@ def nasdac_choices(hp, device):
 
 def main_lowrank_ordinal(T_obs):
     """recover_lowrank_mle at B=256 on the ordinal encodings (depth cut)."""
-    from quantized_spectrum_cartography_tpu_torch.config import SolverConfig
     from quantized_spectrum_cartography_tpu_torch.ops.kernels import (
         quantized_nll as q)
     from quantized_spectrum_cartography_tpu_torch.ops.kernels.onebit_nll import (
@@ -1425,9 +1416,7 @@ def main_lowrank_ordinal(T_obs):
     from quantized_spectrum_cartography_tpu_torch.solvers import (
         recover_lowrank_mle)
 
-    scfg = SolverConfig(max_iters=LOWRANK_ORDINAL_OUTER, s_inner_iters=INNER,
-                        c_inner_iters=INNER, lr_s=0.001, lr_c=0.001,
-                        projection_interval=5, rank_truncation=10)
+    scfg = bench_config(LOWRANK_ORDINAL_OUTER)
     S0 = torch.zeros(BATCH, RANK, GRID, GRID, device=DEVICE)
     C0 = torch.full((BATCH, RANK, BANDS), 0.01, device=DEVICE)
     want_qr = 2 * (LOWRANK_ORDINAL_OUTER // scfg.projection_interval)
@@ -1458,9 +1447,9 @@ def main_lowrank_ordinal(T_obs):
         fail(f"the low-rank encodings did not launch every kernel: {launches}")
     W, U = q.pack_bounds_1bit(T_obs, MEAN)
     inputs = (res.S.reshape(BATCH, RANK, -1).contiguous(),
-              res.C.transpose(1, 2).contiguous(), ((W, U),
-                                                   pack_codes_1bit(T_obs)),
-              q.onebit_bounds(MEAN), STD, 0.0, True, q._fast_ok(STD))
+              res.C.transpose(1, 2).contiguous(), pack_codes_1bit(T_obs), W,
+              U, torch.ones(BATCH, device=DEVICE), q.onebit_bounds(MEAN),
+              (STD, 0.0, True, q._fast_ok(STD)))
     return launches, inputs
 
 def kernel_counts():
@@ -2123,180 +2112,31 @@ def train(card, vae_cost):
     return {k: v for k, v in launched.items() if v}
 
 
-def event_ms(fn):
-    for _ in range(3):
-        fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(TIMING_REPS):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / TIMING_REPS
-
-
-def graph_ms(fn):
-    """Device ms per call: TIMING_REPS calls of `fn` captured in one CUDA
-    graph, its replays timed with CUDA events."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        for _ in range(3):
-            fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(TIMING_REPS):
-            fn()
-    graph.replay()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(GRAPH_REPLAYS):
-        graph.replay()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / (GRAPH_REPLAYS * TIMING_REPS)
-
-
-def bound(nbytes, flops):
-    t_bytes, t_ops = nbytes / PEAK_BYTES_S, flops / PEAK_F32_FLOP_S
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
-                                       else "operations")
-
-
-def in_turns(pairs):
-    """{name: (kernel ms, plain ms, kernel graph ms)}: back-to-back calls
-    timed plain, kernel, kernel, plain, then the kernel in a CUDA graph."""
-    ms = {}
-    for name, (kern, plain) in pairs.items():
-        p1, k1, k2, p2 = (event_ms(plain), event_ms(kern), event_ms(kern),
-                          event_ms(plain))
-        ms[name] = ((k1 + k2) / 2, (p1 + p2) / 2, graph_ms(kern))
-    return ms
-
-
-def timing_onebit(inputs):
-    """The 1-bit pair at the bench shapes; bounds from the bytes each pass
-    must move and its f32 operations (the TPU kernels' own cost estimates:
-    2KRP + 15KP flops and 2KP transcendentals forward, 6KRP + 20KP and 3KP
-    backward, per map)."""
-    from quantized_spectrum_cartography_tpu_torch.ops.kernels import onebit_nll as k
-
-    S, C, codes, g = inputs
-    B, R, P = S.shape
-    K = C.shape[1]
-    ms = in_turns({
-        "onebit_nll_fwd": (
-            lambda: k.onebit_nll_fwd_cuda(S, C, codes, MEAN, STD),
-            lambda: k.onebit_nll_plain(S, C, codes, MEAN, STD)),
-        "onebit_nll_bwd": (
-            lambda: k.onebit_nll_bwd_cuda(S, C, codes, g, MEAN, STD),
-            lambda: k.onebit_nll_grad_plain(S, C, codes, g, MEAN, STD)),
-    })
-    in_bytes = codes.numel() + 4 * (S.numel() + C.numel())
-    bounds = {
-        "onebit_nll_fwd": bound(in_bytes + 4 * B,
-                                B * (2 * K * R * P + 17 * K * P)),
-        "onebit_nll_bwd": bound(in_bytes + 4 * B + 4 * (S.numel() + C.numel()),
-                                B * (6 * K * R * P + 23 * K * P)),
-    }
-    return ms, bounds
-
-
-def timing_ordinal(inputs, label):
-    """The four ordinal kernels on one solve's final factors.  Bounds: each
-    input read once and each output written once ((W, U) 8 B per entry,
-    codes 1 B), and the f32 operations of the entries this run observes
-    (the kernels skip masked ones), per the TPU kernels' cost estimates:
-    2R + 25 flops and 4 transcendentals forward, 6R + 30 and 5 backward."""
-    from quantized_spectrum_cartography_tpu_torch.ops.kernels import (
-        quantized_nll as q)
-
-    S, C, (bounds_obs, codes), table, sigma, offset, linear, fast = inputs
-    W, U = bounds_obs
-    st = (sigma, offset, linear, fast)
-    B, R, P = S.shape
-    K = C.shape[1]
-    g = torch.full((B,), 1.0, device=DEVICE)
-    ms = in_turns({
-        "quantized_nll_fwd": (
-            lambda: q.quantized_nll_fwd_cuda(S, C, W, U, *st),
-            lambda: q.quantized_nll_plain(S, C, W, U, *st)),
-        "quantized_nll_bwd": (
-            lambda: q.quantized_nll_bwd_cuda(S, C, W, U, g, *st),
-            lambda: q.quantized_nll_grad_plain(S, C, W, U, g, *st)),
-        "quantized_nll_coded_fwd": (
-            lambda: q.quantized_nll_coded_fwd_cuda(S, C, codes, table, *st),
-            lambda: q.quantized_nll_coded_plain(S, C, codes, table, *st)),
-        "quantized_nll_coded_bwd": (
-            lambda: q.quantized_nll_coded_bwd_cuda(S, C, codes, table, g,
-                                                   *st),
-            lambda: q.quantized_nll_coded_grad_plain(S, C, codes, table, g,
-                                                     *st)),
-    })
-    observed = int((codes < len(table) - 1).sum().item())
-    factors = 4 * (S.numel() + C.numel())
-    ops_f = observed * (2 * R + 25 + 4)
-    ops_b = observed * (6 * R + 30 + 5)
-    bounds = {
-        "quantized_nll_fwd": bound(factors + 8 * W.numel() + 4 * B, ops_f),
-        "quantized_nll_bwd": bound(2 * factors + 8 * W.numel() + 4 * B,
-                                   ops_b),
-        "quantized_nll_coded_fwd": bound(factors + codes.numel() + 4 * B,
-                                         ops_f),
-        "quantized_nll_coded_bwd": bound(2 * factors + codes.numel() + 4 * B,
-                                         ops_b),
-    }
-    print(f"timing {label}: B={B}, K={K}, P={P}, R={R}, {observed} of "
-          f"{codes.numel()} entries observed", flush=True)
-    return ms, bounds
-
-
-def timing_qr(inputs):
-    """The QR at the bench projection's shape, Y = S @ probe from the main
-    path's final S ([256, 2, 51, 18]).  Bound: Y read once and Q written
-    once; 4mk² - 4k³/3 f32 operations a matrix (geqrf's 2mk² - 2k³/3 and as
-    many for orgqr's explicit Q).  torch.linalg.qr is timed in turns with it,
-    in the plain version's place, as the yardstick only (the port never
-    calls it on the card)."""
-    from quantized_spectrum_cartography_tpu_torch.ops import lowrank as lr
-    from quantized_spectrum_cartography_tpu_torch.ops.kernels import (
-        householder_qr as hq)
-
-    S_flat = inputs[0]
-    B, R, _ = S_flat.shape
-    Y = (S_flat.reshape(B, R, GRID, GRID)
-         @ lr.default_probe(GRID, QR_COLS, device=DEVICE))
-    ms = in_turns({QR: (lambda: hq.householder_qr_cuda(Y),
-                        lambda: torch.linalg.qr(Y))})
-    n, m, k = B * R, GRID, QR_COLS
-    bounds = {QR: bound(2 * 4 * n * m * k,
-                        n * (4 * m * k * k - 4 * k ** 3 / 3))}
-    return ms, bounds
-
-
 def timing(inputs_1bit, inputs_gan, inputs_lowrank):
-    ms, bounds = timing_onebit(inputs_1bit)
-    ms_gan, bounds_gan = timing_ordinal(inputs_gan, "MLE-GAN shape")
-    ms_lr, bounds_lr = timing_ordinal(inputs_lowrank, "low-rank shape")
-    ms_qr, bounds_qr = timing_qr(inputs_1bit)
-    for part, part_bounds in ((ms_gan, bounds_gan), (ms_qr, bounds_qr)):
-        ms.update(part)
-        bounds.update(part_bounds)
-    for name in KERNELS:
-        ref = "torch.linalg.qr (yardstick)" if name == QR else "plain"
-        print(f"timing {name}: kernel {ms[name][0]:.4f} ms, graph "
-              f"{ms[name][2]:.4f} ms, {ref} {ms[name][1]:.4f} ms, bound "
-              f"{bounds[name][0]:.4f} ms ({bounds[name][1]})", flush=True)
-    for name in ORDINAL:
-        print(f"timing {name} at B={BATCH}: kernel {ms_lr[name][0]:.4f} ms, "
-              f"graph {ms_lr[name][2]:.4f} ms, plain {ms_lr[name][1]:.4f} ms, "
-              f"bound "
-              f"{bounds_lr[name][0]:.4f} ms ({bounds_lr[name][1]})",
-              flush=True)
-    return ms, bounds, ms_lr, bounds_lr
+    """bench_kernels' timers and bounds on the solves' final factors:
+    {name: row} of the 1-bit pair (bench shapes), the ordinal kernels
+    (MLE-GAN shape) and the QR (Y = S @ probe of the main path's S), and
+    {name: row} of the ordinal kernels at the low-rank shape."""
+    from quantized_spectrum_cartography_tpu_torch import bench_kernels as bk
+    from quantized_spectrum_cartography_tpu_torch.ops import lowrank as lr
+
+    Y = (inputs_1bit[0].reshape(BATCH, RANK, GRID, GRID)
+         @ lr.default_probe(GRID, QR_COLS, device=DEVICE))
+    rows, rows_lr = {}, {}
+    for out, (calls, bounds) in (
+            (rows, bk.onebit_kernels(*inputs_1bit)),
+            (rows, bk.ordinal_kernels(*inputs_gan)), (rows, bk.qr_kernel(Y)),
+            (rows_lr, bk.ordinal_kernels(*inputs_lowrank))):
+        out.update({name: {**row, **bounds[name]}
+                    for name, row in bk.in_turns(calls).items()})
+    for label, part in (("", rows), (f" at B={BATCH}", rows_lr)):
+        for name, r in part.items():
+            ref = "torch.linalg.qr (yardstick)" if name == QR else "plain"
+            print(f"timing {name}{label}: kernel {r['eager_ms']:.4f} ms, "
+                  f"graph {r['graph_ms']:.4f} ms, {ref} {r['plain_ms']:.4f} "
+                  f"ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']})",
+                  flush=True)
+    return rows, rows_lr
 
 
 def main():
@@ -2330,8 +2170,8 @@ def main():
     phase("anchors", lambda: anchors(card))
     point_256 = phase("bits", lambda: bits(card))
     launches_train = phase("train", lambda: train(card, vae_cost))
-    ms, bounds, ms_lr, bounds_lr = phase(
-        "timing", lambda: timing(inputs_1bit, inputs_gan, inputs_lr))
+    ms, ms_lr = phase("timing",
+                      lambda: timing(inputs_1bit, inputs_gan, inputs_lr))
 
     kernels = []
     for name, (source, line) in KERNELS.items():
@@ -2339,10 +2179,10 @@ def main():
             "name": name, "route": "cuda", "source": CSRC + source,
             "replaces": f"{TPU_KERNELS}:{line}" if line else None,
             "launches": launches[name], "max_abs_err": errs[name],
-            "ms": ms[name][0], "graph_ms": ms[name][2],
-            "plain_ms": None if name == QR else ms[name][1],
-            "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
-            "library_ms": ms[name][1] if name == QR else None,
+            "ms": ms[name]["eager_ms"], "graph_ms": ms[name]["graph_ms"],
+            "plain_ms": None if name == QR else ms[name]["plain_ms"],
+            "bound_ms": ms[name]["bound_ms"], "bound_by": ms[name]["bound_by"],
+            "library_ms": ms[name]["plain_ms"] if name == QR else None,
             "serve_launches": launches_serve[name],
             "main_vae_launches": launches_vae.get(name, 0),
             "train_recover_launches": launches_train.get(name, 0),
@@ -2358,11 +2198,11 @@ def main():
                 "bound_ms": point_256["bound_ms"],
                 "bound_by": point_256["bound_by"]}
         if name in ORDINAL:
+            r = ms_lr[name]
             rec["lowrank_b256"] = {
-                "launches": launches_lr[name], "ms": ms_lr[name][0],
-                "graph_ms": ms_lr[name][2], "plain_ms": ms_lr[name][1],
-                "bound_ms": bounds_lr[name][0],
-                "bound_by": bounds_lr[name][1]}
+                "launches": launches_lr[name], "ms": r["eager_ms"],
+                "graph_ms": r["graph_ms"], "plain_ms": r["plain_ms"],
+                "bound_ms": r["bound_ms"], "bound_by": r["bound_by"]}
         kernels.append(rec)
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -104,7 +104,6 @@ Z_LIMIT = 3.0 * math.sqrt(2.0)
 # the 256-bin kernel point (bits_sweep_tpu.py:309-357)
 KERNEL_BATCH = 128
 VALUE_RTOL, GRAD_RTOL = 1e-5, 1e-4
-PEAK_BYTES_S = 3.35e12       # H100 SXM HBM3
 
 
 def problem_set(generator: torch.Generator, batch: int = BATCH,
@@ -343,10 +342,10 @@ def kernel_point(T0, mask0, generator) -> dict:
     forward and backward kernels against their plain versions, a second
     launch bit for bit, the forward's and backward's ms (CUDA events over
     back-to-back calls) and device ms (the calls in one CUDA graph;
-    bench_onebit.py's timers), and the bound: W and U read once (8 bytes an
+    bench_kernels.py's timers), and the bound: W and U read once (8 bytes an
     entry) at 3.35 TB/s."""
-    from quantized_spectrum_cartography_tpu_torch.bench_onebit import (
-        eager_ms, graph_ms)
+    from quantized_spectrum_cartography_tpu_torch.bench_kernels import (
+        bound, eager_ms, graph_ms)
     from quantized_spectrum_cartography_tpu_torch.ops.kernels import (
         quantized_nll as q)
 
@@ -388,8 +387,7 @@ def kernel_point(T0, mask0, generator) -> dict:
         "second_launch_bitwise": bool(bitwise),
         "fwd_ms": ms["fwd"], "bwd_ms": ms["bwd"],
         "fwd_graph_ms": graph["fwd"], "bwd_graph_ms": graph["bwd"],
-        "bound_ms": nbytes / PEAK_BYTES_S * 1e3, "bound_by": "bytes",
-        "bound_bytes": nbytes,
+        **bound(nbytes, 0), "bound_bytes": nbytes,
     }
 
 

@@ -1,6 +1,7 @@
 """The port stands alone: no module of it, and not chip_smoke.py, imports
-JAX, its libraries or anything of the JAX package (checked on the sources,
-so a lazy import inside a function counts too)."""
+JAX, its libraries or anything of the JAX package, nor the benchmark that
+measures it (port_bench; checked on the sources, so a lazy import inside a
+function counts too)."""
 
 import ast
 from pathlib import Path
@@ -10,7 +11,7 @@ import pytest
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "quantized_spectrum_cartography_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "tensorstore",
-             "quantized_spectrum_cartography_tpu", "tests")
+             "quantized_spectrum_cartography_tpu", "tests", "port_bench")
 SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 

@@ -275,27 +275,3 @@ def test_scheduler_failed_requests_marked():
     assert not named(recs, "qsc.request.result")
     # the solver was called: each request's queue wait was stamped
     assert len(named(recs, "qsc.request.queue")) == 3
-
-
-def test_serving_bench_reads_every_request_and_batch_part():
-    """`serving_bench.request_parts` gives the p50 and p95 of each request
-    wait and of each scheduler span; nothing with recording off."""
-    from quantized_spectrum_cartography_tpu_torch import serving_bench
-
-    def solver(b):
-        time.sleep(0.005)
-        return {"y": b["x"] * 2.0}
-
-    scheduled(solver, 6, 4, max_wait_ms=10)
-    got = serving_bench.request_parts()
-    parts = ("queue", "result", "request", "collect", "stack", "solve",
-             "download", "drain")
-    assert sorted(got) == sorted(f"{p}_{q}_s" for p in parts
-                                 for q in ("p50", "p95"))
-    for p in parts:
-        assert 0.0 <= got[f"{p}_p50_s"] <= got[f"{p}_p95_s"], p
-    assert got["solve_p50_s"] >= 0.005
-    tracing.clear()
-    tracing.set_enabled(False)
-    scheduled(solver, 2, 2, max_wait_ms=10)
-    assert serving_bench.request_parts() == {}
